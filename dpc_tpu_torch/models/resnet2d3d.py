@@ -1,0 +1,144 @@
+"""2D-3D ResNet backbone family (18/34/50/101/152/200).
+
+Port of ``dpc_tpu/models/resnet2d3d.py`` (reference
+``backbone/resnet_2d3d.py``): stages 1-2 use "2D" blocks (1×3×3 kernels,
+spatial stride only), stages 3-4 true 3D blocks (3×3×3, stride in time
+too), the stem never strides time, layer4 keeps 256 planes, and the last
+block of layer4 skips its final ReLU so the DPC head reads a
+pre-activation embedding.
+
+The stem is the literal conv → BN → ReLU → max-pool.  Module names are the
+reference's (``conv1``, ``bn1``, ``layerL.B.{conv,bn}{i}``,
+``layerL.B.downsample.{0,1}``).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from dpc_tpu_torch.models import layers as L
+
+# (block kinds per stage, blocks per stage)
+ARCH: dict[str, tuple[tuple[str, str, str, str], tuple[int, int, int, int]]] = {
+    "resnet18": (("basic2d", "basic2d", "basic3d", "basic3d"), (2, 2, 2, 2)),
+    "resnet34": (("basic2d", "basic2d", "basic3d", "basic3d"), (3, 4, 6, 3)),
+    "resnet50": (("bottleneck2d", "bottleneck2d", "bottleneck3d",
+                  "bottleneck3d"), (3, 4, 6, 3)),
+    "resnet101": (("bottleneck2d", "bottleneck2d", "bottleneck3d",
+                   "bottleneck3d"), (3, 4, 23, 3)),
+    "resnet152": (("bottleneck2d", "bottleneck2d", "bottleneck3d",
+                   "bottleneck3d"), (3, 8, 36, 3)),
+    "resnet200": (("bottleneck2d", "bottleneck2d", "bottleneck3d",
+                   "bottleneck3d"), (3, 24, 36, 3)),
+}
+# layer4 planes deliberately 256, not 512 (reference :222)
+STAGE_PLANES = (64, 128, 256, 256)
+STAGE_STRIDES = (1, 2, 2, 2)
+EXPANSION = {"basic2d": 1, "basic3d": 1, "bottleneck2d": 4, "bottleneck3d": 4}
+
+
+def _block_specs(network: str) -> list[list[dict]]:
+    """Static per-block spec table: kind / channels / stride / final-relu."""
+    kinds, depths = ARCH[network]
+    in_ch = 64
+    stages = []
+    for si, (kind, depth) in enumerate(zip(kinds, depths)):
+        planes = STAGE_PLANES[si]
+        stride = STAGE_STRIDES[si]
+        is_final_stage = si == 3
+        blocks = []
+        for bi in range(depth):
+            s = stride if bi == 0 else 1
+            out_ch = planes * EXPANSION[kind]
+            blocks.append({
+                "kind": kind,
+                "in_ch": in_ch,
+                "planes": planes,
+                "stride": s,
+                "downsample": bi == 0 and (s != 1 or in_ch != out_ch),
+                # only the LAST block of layer4 drops its final ReLU
+                "final_relu": not (is_final_stage and bi == depth - 1),
+            })
+            in_ch = out_ch
+        stages.append(blocks)
+    return stages
+
+
+def feature_size(network: str) -> int:
+    kinds, _ = ARCH[network]
+    return STAGE_PLANES[3] * EXPANSION[kinds[3]]
+
+
+def _conv_shape(kind: str, stride: int):
+    """(kernel, stride, padding) of the spatial conv inside a block."""
+    if kind.endswith("2d"):
+        return (1, 3, 3), (1, stride, stride), (0, 1, 1)
+    return (3, 3, 3), (stride, stride, stride), (1, 1, 1)
+
+
+def _down_stride(kind: str, stride: int) -> tuple[int, int, int]:
+    return (1, stride, stride) if kind.endswith("2d") else (stride,) * 3
+
+
+class Block(nn.Module):
+    """BasicBlock or Bottleneck, 2D or 3D, as the spec says."""
+
+    def __init__(self, spec: dict):
+        super().__init__()
+        kind, in_ch, planes, stride = (spec["kind"], spec["in_ch"],
+                                       spec["planes"], spec["stride"])
+        self.final_relu = spec["final_relu"]
+        self.bottleneck = kind.startswith("bottleneck")
+        k, st, pad = _conv_shape(kind, stride)
+        if self.bottleneck:
+            out_ch = planes * 4
+            self.conv1 = L.conv3d(in_ch, planes, 1)
+            self.bn1 = L.batchnorm3d(planes)
+            self.conv2 = L.conv3d(planes, planes, k, st, pad)
+            self.bn2 = L.batchnorm3d(planes)
+            self.conv3 = L.conv3d(planes, out_ch, 1)
+            self.bn3 = L.batchnorm3d(out_ch)
+        else:
+            out_ch = planes
+            self.conv1 = L.conv3d(in_ch, planes, k, st, pad)
+            self.bn1 = L.batchnorm3d(planes)
+            k2, st2, pad2 = _conv_shape(kind, 1)
+            self.conv2 = L.conv3d(planes, planes, k2, st2, pad2)
+            self.bn2 = L.batchnorm3d(planes)
+        self.downsample = None
+        if spec["downsample"]:
+            self.downsample = nn.Sequential(
+                L.conv3d(in_ch, out_ch, 1, _down_stride(kind, stride)),
+                L.batchnorm3d(out_ch))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = self.bn2(self.conv2(out))
+        if self.bottleneck:
+            out = self.bn3(self.conv3(F.relu(out)))
+        residual = x if self.downsample is None else self.downsample(x)
+        out = out + residual
+        return F.relu(out) if self.final_relu else out
+
+
+class ResNet2d3d(nn.Module):
+    """x: NDHWC ``[B, T, H, W, 3]`` → ``[B, T/4, H/32, W/32, D]`` (pre-ReLU)."""
+
+    def __init__(self, network: str = "resnet18"):
+        super().__init__()
+        self.network = network
+        self.conv1 = L.conv3d(3, 64, (1, 7, 7), (1, 2, 2), (0, 3, 3))
+        self.bn1 = L.batchnorm3d(64)
+        for si, stage in enumerate(_block_specs(network)):
+            setattr(self, f"layer{si + 1}",
+                    nn.Sequential(*[Block(spec) for spec in stage]))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # NDHWC → NCDHW is a view with channels_last_3d strides
+        h = x.permute(0, 4, 1, 2, 3)
+        h = L.relu_maxpool_stem(self.bn1(self.conv1(h)))
+        for si in range(4):
+            h = getattr(self, f"layer{si + 1}")(h)
+        return h.permute(0, 2, 3, 4, 1)

@@ -1,0 +1,115 @@
+"""Flash-NCE: CUDA kernels and their plain PyTorch versions.
+
+Port of ``dpc_tpu/ops/nce_pallas.py``.  ``nce_forward`` runs K-NCE-F
+(``csrc/nce.cu``) on CUDA tensors and ``nce_forward_plain`` on CPU tensors;
+``nce_backward`` likewise runs K-NCE-B or ``nce_backward_plain``.  A CUDA
+tensor launches the kernel or raises; nothing falls back.
+
+loss_i = logsumexp_j(s_ij) − s_i,pos with s = rows·colsᵀ, and top-k from
+the rank ``#{j ≠ target_i : s_ij > pos_i}``.  The kernels never write the
+score matrix to device memory.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from dpc_tpu_torch.ops import _build
+
+
+def nce_forward_plain(rows, cols, pos, targets):
+    """(lse, rank) per row from the materialised score."""
+    with torch.autocast(rows.device.type, enabled=False):
+        score = rows @ cols.t()
+        lse = torch.logsumexp(score, dim=-1)
+        col = torch.arange(cols.shape[0], device=rows.device)
+        beats = (score > pos[:, None]) & (col[None, :] != targets[:, None])
+        return lse, beats.sum(-1).float()
+
+
+def nce_backward_plain(rows, cols, lse, g):
+    """drows = P·cols, dcols = Pᵀ·rows with P = exp(S − lse)·g."""
+    with torch.autocast(rows.device.type, enabled=False):
+        p = torch.exp(rows @ cols.t() - lse[:, None]) * g[:, None]
+        return p @ cols, p.t() @ rows
+
+
+def nce_forward(rows, cols, pos, targets):
+    """K-NCE-F.  rows ``[R, D]``, cols ``[C, D]``, pos ``[R]`` f32,
+    targets ``[R]`` int32 → (lse, rank), both ``[R]`` f32."""
+    if rows.device.type == "cpu":
+        return nce_forward_plain(rows, cols, pos, targets)
+    _build.check_cuda_f32(rows, cols, pos)
+    if targets.dtype != torch.int32 or targets.device != rows.device:
+        raise TypeError("targets must be int32 on the rows' device")
+    r, d = rows.shape
+    lse = torch.empty(r, device=rows.device, dtype=torch.float32)
+    rank = torch.empty_like(lse)
+    _build.launch("nce", "nce_fwd", rows, cols, pos, targets.contiguous(),
+                  lse, rank, r, cols.shape[0], d)
+    return lse, rank
+
+
+def nce_backward(rows, cols, lse, g):
+    """K-NCE-B: (drows, dcols) of Σ_i g_i·lse_i, in two deterministic
+    sweeps of one launch."""
+    if rows.device.type == "cpu":
+        return nce_backward_plain(rows, cols, lse, g)
+    g = g.contiguous()
+    _build.check_cuda_f32(rows, cols, lse, g)
+    drows, dcols = torch.empty_like(rows), torch.empty_like(cols)
+    _build.launch("nce", "nce_bwd", rows, cols, lse, g, drows, dcols,
+                  rows.shape[0], cols.shape[0], rows.shape[1])
+    return drows, dcols
+
+
+class _LseRank(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, rows, cols, targets):
+        t = targets.long()
+        pos = (rows * cols[t]).sum(-1)
+        lse, rank = nce_forward(rows, cols, pos, targets)
+        ctx.save_for_backward(rows, cols, targets, lse)
+        ctx.mark_non_differentiable(rank)
+        return lse, pos, rank
+
+    @staticmethod
+    def backward(ctx, g_lse, g_pos, _g_rank):
+        rows, cols, targets, lse = ctx.saved_tensors
+        t = targets.long()
+        drows, dcols = nce_backward(rows, cols, lse, g_lse)
+        # positive-logit term: d(pos_i)/drows_i = cols[t_i], scattered
+        # onto the target columns for dcols
+        drows = drows + g_pos[:, None] * cols[t]
+        dcols = dcols.index_add(0, t, g_pos[:, None] * rows)
+        return drows, dcols, None
+
+
+def nce_lse_rank(rows: torch.Tensor, cols: torch.Tensor,
+                 targets: torch.Tensor):
+    """(lse, pos, rank) per row without materialising the score matrix on
+    the card.  rows ``[R, D]`` f32, cols ``[C, D]`` f32, targets ``[R]``
+    int32.  loss = mean(lse − pos); top-k accuracy = mean(rank < k)."""
+    return _LseRank.apply(rows, cols, targets)
+
+
+def fused_nce_loss(pred: torch.Tensor, gt: torch.Tensor,
+                   targets: Optional[torch.Tensor] = None,
+                   ks: tuple[int, ...] = (1, 3, 5)
+                   ) -> tuple[torch.Tensor, dict]:
+    """Drop-in for ``dense_score`` + ``nce_loss``.  pred, gt:
+    ``[B, P, S, S, D]``; targets default to the diagonal."""
+    d = pred.shape[-1]
+    rows = pred.reshape(-1, d).float().contiguous()
+    cols = gt.reshape(-1, d).float().contiguous()
+    if targets is None:
+        if rows.shape[0] != cols.shape[0]:
+            raise ValueError("default diagonal targets need as many GT "
+                             "cells as predictions")
+        targets = torch.arange(rows.shape[0], device=rows.device,
+                               dtype=torch.int32)
+    lse, pos, rank = nce_lse_rank(rows, cols, targets.int())
+    loss = (lse - pos).mean()
+    return loss, {f"top{k}": (rank < k).float().mean() for k in ks}
