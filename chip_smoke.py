@@ -1,25 +1,35 @@
 """Smoke run of dpc_tpu_torch on one NVIDIA GPU: builds the CUDA kernels,
 holds each against its plain PyTorch version, and drives the DPC pretrain
-step at its full width.
+step and the LC finetune, eval and dense-test path at their full width.
 
     python3 chip_smoke.py [--profile PATH]
 
 Phases, each printing its facts before the next starts:
   1. build    compile csrc/*.cu for sm_90a (one nvcc per source, in parallel)
-  2. kernels  K-GRU-F/B and K-NCE-F/B against their plain versions on the
-              card, at the flagship shapes, the 6144-row NCE shape and ragged
-              shapes, with f32 matmul and cuDNN TF32 off; values and grads
+  2. kernels  K-GRU-F/B, K-NCE-F/B and the stem pool's K1/K2/K8 against
+              their plain versions on the card, at the pretrain and LC
+              shapes, the 6144-row NCE shape, ragged shapes and data with
+              exact ties, with f32 matmul and cuDNN TF32 off; values and
+              grads; the stem activation's layout as the backbone makes it
   3. step     a small f32 step through the kernels against the same step
-              through the plain paths; then the flagship R18-128, B=64, bf16
-              train step through make_pretrain_step with gru_impl="pallas"
-              and nce_impl="fused": 2 warm-up and 10 timed steps, with the
+              through the plain paths; then the pretrain flagship R18-128,
+              B=64, bf16 train step (gru_impl="pallas", nce_impl="fused",
+              stem pool "auto"): 2 warm-up and 10 timed steps, with the
               kernels' launch counts read around the timed steps
-  4. cli      python -m dpc_tpu_torch.train.pretrain for 2 synthetic steps
+  4. lc       the same check for one small f32 LC finetune step; then the
+              LC flagship R18-128, 8x5, B=32, bf16, 101 classes: 2 warm-up
+              and 10 timed finetune steps with the launch counts read
+              around them, one eval step, and the dense-test forward at
+              window batch 32
+  5. cli      python -m dpc_tpu_torch.train.pretrain for 2 synthetic steps;
+              python -m dpc_tpu_torch.train.evaluate for 1 epoch of 2 steps
+              plus val, then --test random on a few synthetic videos
 Then one JSON line of per-kernel results, the card's name and power limit,
 and a last line {"ok": true, "device": {...}}.  Any failure exits non-zero
 before the last line.  Without a CUDA device it exits 2 and prints no result.
 
---profile PATH writes a torch.profiler table of two flagship steps to PATH.
+--profile PATH writes torch.profiler tables of two pretrain and two LC
+flagship steps to PATH.
 """
 
 from __future__ import annotations
@@ -46,6 +56,14 @@ TOL_VALUE = 1e-5   # max |kernel − plain| / max |plain|, forward values
 TOL_GRAD = 1e-4    # the same for gradients (longer f32 reductions)
 RANK_ROWS = 0.01   # share of rows whose rank may differ, by at most 2: a
                    # score within f32 rounding of pos flips a strict >
+TOL_POOL_F32 = 1e-6  # max |kernel − plain| / max |plain| of the pool grads
+                     # in f32: at most four terms summed, in the same order
+
+# the kernels each path must launch (names of _build.LAUNCHES)
+PRETRAIN_KERNELS = ("convgru_fwd", "convgru_bwd", "nce_fwd", "nce_bwd",
+                    "maxpool_relu_fwd", "maxpool_relu_bwd")
+LC_KERNELS = ("convgru_fwd", "convgru_bwd", "maxpool_relu_fwd",
+              "maxpool_relu_bwd")
 
 
 def log(msg: str) -> None:
@@ -247,22 +265,193 @@ def check_nce(r, c, d, shift, timed: bool) -> dict:
     return res
 
 
+def _bf16_ulp(x: float) -> float:
+    """One bf16 ulp at magnitude x (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(x)) - 7) if x > 0 else 0.0
+
+
+def _aten_pool(z4, relu: bool, gout=None):
+    """ATen's max-pool of z4 [M, H, W, C] as the backbone calls it (an
+    NCDHW channels-last-3d view), and with ``gout`` its autograd dz."""
+    import torch
+    import torch.nn.functional as F
+
+    x = z4.detach().unsqueeze(1).permute(0, 4, 1, 2, 3).requires_grad_(
+        gout is not None)
+    y = F.max_pool3d(F.relu(x) if relu else x, (1, 3, 3), (1, 2, 2),
+                     (0, 1, 1))
+    if gout is None:
+        return y
+    y.backward(gout.unsqueeze(1).permute(0, 4, 1, 2, 3))
+    return x.grad.permute(0, 2, 3, 4, 1)[:, 0]
+
+
+def _pool_input(shape, dtype, ties: bool, seed: int):
+    """Normal draws; with ``ties`` rounded to a grid of 0.5, so windows
+    hold exact ties (and exact zeros)."""
+    import torch
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    z = torch.randn(shape, device=dev, generator=g)
+    if ties:
+        z = (2 * z).round() / 2
+    gout = torch.randn((shape[0], shape[1] // 2, shape[2] // 2, shape[3]),
+                       device=dev, generator=g)
+    return z.to(dtype), gout.to(dtype)
+
+
+def _grad_err(name, got, want, dtype) -> float:
+    """Holds a pool gradient: f32 to TOL_POOL_F32 relative, bf16 to one
+    bf16 ulp of max |want|.  Returns the max abs error."""
+    import torch
+
+    err = float((got.float() - want.float()).abs().max())
+    peak = float(want.float().abs().max())
+    if dtype == torch.float32:
+        ok = err <= TOL_POOL_F32 * max(peak, 1e-30)
+    else:
+        ok = err <= _bf16_ulp(peak)
+    expect(ok, f"{name} disagrees with its plain version: max abs err "
+               f"{err:.3e}, max |dz| {peak:.3e}")
+    return err
+
+
+def check_pool(shape, dtype, ties: bool, timed: bool) -> dict:
+    """K1, K2 and K8 against their plain versions at z ``shape``; K1 bit
+    for bit.  On tie data K2 must route as ATen does (first max) and K8
+    must give every tied max the window's gradient."""
+    import torch
+    from dpc_tpu_torch.ops import maxpool_cuda as P
+
+    z, gout = _pool_input(shape, dtype, ties, seed=sum(shape))
+    out_k, code_k = P.maxpool_relu_fwd(z)
+    out_p, code_p = P.maxpool_relu_fwd_plain(z)
+    expect(torch.equal(out_k, out_p) and torch.equal(code_k, code_p),
+           f"K1 differs from its plain version at {shape} {dtype}: "
+           f"{int((out_k != out_p).sum())} values, "
+           f"{int((code_k != code_p).sum())} codes")
+    dz_k = P.maxpool_relu_bwd(gout, code_k)
+    dz_p = P.maxpool_relu_bwd_plain(gout, code_p)
+    eq_k = P.maxpool_bwd_eq(z, gout)
+    eq_p = P.maxpool_bwd_eq_plain(z, gout)
+    torch.cuda.synchronize()
+    res = {"fwd": {"err": 0.0},
+           "bwd": {"err": _grad_err("K2", dz_k, dz_p, dtype)},
+           "eq": {"err": _grad_err("K8", eq_k, eq_p, dtype)}}
+    name = (f"pool {list(shape)} {str(dtype).split('.')[-1]}"
+            + (" ties" if ties else ""))
+    facts = [f"K1 bit-equal ({int((code_k == P.DEAD).sum())} dead codes)",
+             f"K2 err {res['bwd']['err']:.2e}", f"K8 err {res['eq']['err']:.2e}"]
+    if z.numel() <= 2 ** 24:
+        # first-max routing against ATen, in f32 on the same values (at a
+        # size where normal f32 draws hold no tied window maxima)
+        dz_aten = _aten_pool(z.float(), True, gout.float())
+        _grad_err("K2 vs ATen", dz_k, dz_aten, dtype)
+        if dtype == torch.float32 and not ties:
+            # bf16 draws tie within a window, where K8 gives every tied max
+            # the gradient and ATen only the first
+            _grad_err("K8 vs ATen", eq_k, _aten_pool(z.float(), False,
+                                                     gout.float()), dtype)
+        facts.append("K2 routes as ATen")
+    if ties:
+        # every tied max: K8 sends gradient where ATen's pool (no ReLU)
+        # does not
+        dz_first = _aten_pool(z.float(), False, gout.float())
+        extra = int(((eq_k.float() != 0) & (dz_first == 0)).sum())
+        expect(extra > 0, "tie data gave K8 no tied maxima")
+        facts.append(f"K8 routes to {extra} tied maxima ATen skips")
+    log(f"[kernels] {name}: " + "; ".join(facts))
+    if timed:
+        nz, no = z.numel() * z.element_size(), out_k.numel() * z.element_size()
+        nc = code_k.numel()
+        ops = 9 * out_k.numel()                   # compares per window
+        zr = z.unsqueeze(1).permute(0, 4, 1, 2, 3).relu()
+        _, idx = torch.ops.aten.max_pool3d_with_indices(
+            zr, [1, 3, 3], [1, 2, 2], [0, 1, 1], [1, 1, 1], False)
+        g5 = gout.unsqueeze(1).permute(0, 4, 1, 2, 3)
+        res["fwd"].update(
+            ms=cuda_ms(lambda: P.maxpool_relu_fwd(z)),
+            plain_ms=cuda_ms(lambda: P.maxpool_relu_fwd_plain(z)),
+            library_ms=cuda_ms(lambda: _aten_pool(z, True)),
+            bound=bound_ms(nz + no + nc, ops))
+        res["bwd"].update(
+            ms=cuda_ms(lambda: P.maxpool_relu_bwd(gout, code_k)),
+            plain_ms=cuda_ms(lambda: P.maxpool_relu_bwd_plain(gout, code_k)),
+            library_ms=cuda_ms(
+                lambda: torch.ops.aten.max_pool3d_with_indices_backward(
+                    g5, zr, [1, 3, 3], [1, 2, 2], [0, 1, 1], [1, 1, 1], False,
+                    idx)),
+            bound=bound_ms(no + nc + nz, 4 * z.numel()))
+        res["eq"].update(
+            ms=cuda_ms(lambda: P.maxpool_bwd_eq(z, gout)),
+            plain_ms=cuda_ms(lambda: P.maxpool_bwd_eq_plain(z, gout)),
+            library_ms=None,
+            bound=bound_ms(nz + no + nz, 9 * 2 * z.numel()))
+        del zr, idx
+        for k, label in (("fwd", "K1"), ("bwd", "K2"), ("eq", "K8")):
+            t = res[k]
+            lib = ("none" if t["library_ms"] is None
+                   else f"{t['library_ms']:.3f}")
+            log(f"[kernels] {name}: {label} {t['ms']:.3f} ms (plain "
+                f"{t['plain_ms']:.3f}, ATen {lib}, bound "
+                f"{t['bound'][0]:.3f} by {t['bound'][1]})")
+    return res
+
+
+def probe_stem_layout() -> None:
+    """The stem activation and the gradient reaching the pool, as the LC
+    backbone makes them under bf16 autocast."""
+    import torch
+    from dpc_tpu_torch.core.config import DPCConfig
+    from dpc_tpu_torch.models import layers as L, lc
+
+    dev = torch.device("cuda")
+    bb = lc.build_lc(DPCConfig(compute_dtype="bfloat16"), 101, dev).backbone
+    x = torch.randn(2, 5, 128, 128, 3, device=dev)
+    seen = []
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        a = bb.bn1(bb.conv1(x.permute(0, 4, 1, 2, 3)))
+        p = L.relu_maxpool_stem(a, "xla")
+        p.register_hook(lambda g: seen.append(g))
+        y = p
+        for si in range(4):
+            y = getattr(bb, f"layer{si + 1}")(y)
+    y.float().sum().backward()
+    cl = torch.channels_last_3d
+    log(f"[kernels] stem activation {list(a.shape)} {a.dtype} strides "
+        f"{a.stride()} channels_last_3d {a.is_contiguous(memory_format=cl)}; "
+        f"grad at the pool output strides {seen[0].stride()} "
+        f"channels_last_3d {seen[0].is_contiguous(memory_format=cl)}")
+    expect(a.is_contiguous(memory_format=cl),
+           "the stem activation is not channels_last_3d")
+
+
 def phase_kernels() -> dict:
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    bf16, f32 = torch.bfloat16, torch.float32
     try:
-        gru = check_gru(5, 1024, 256, timed=True)      # flagship
-        gru_r = check_gru(5, 2156, 256, timed=False)   # ragged: 44 clips at 7²
+        check_gru(5, 1024, 256, timed=True)            # pretrain flagship
+        gru_lc = check_gru(8, 512, 256, timed=True)    # LC flagship
+        check_gru(5, 2156, 256, timed=False)           # ragged: 44 clips at 7²
         nce = check_nce(3072, 3072, 256, 0, timed=True)  # flagship
-        nce_big = check_nce(6144, 6144, 256, 0, timed=True)  # batch 128
-        nce_r = check_nce(1000, 1500, 256, 37, timed=False)  # ragged
+        check_nce(6144, 6144, 256, 0, timed=True)      # batch 128
+        check_nce(1000, 1500, 256, 37, timed=False)    # ragged
+        pool = check_pool((1280, 64, 64, 64), bf16, False, timed=True)  # LC
+        for dt in (bf16, f32):                         # pretrain
+            check_pool((2560, 64, 64, 64), dt, False, timed=True)
+        check_pool((1280, 64, 64, 64), f32, False, timed=False)
+        for dt in (bf16, f32):
+            check_pool((37, 18, 22, 64), dt, False, timed=False)  # ragged
+            check_pool((64, 64, 64, 64), dt, True, timed=False)   # ties
+        probe_stem_layout()
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = True
-    return {"gru": gru, "gru_ragged": gru_r, "nce": nce, "nce_6144": nce_big,
-            "nce_ragged": nce_r}
+    return {"gru_lc": gru_lc, "nce": nce, "pool": pool}
 
 
 # ---------------------------------------------------------------------------
@@ -271,8 +460,8 @@ def phase_kernels() -> dict:
 
 def _small_step_check() -> None:
     """One f32 step at a small size through the kernels and through the
-    plain paths (scan GRU, materialised score), same weights and batch: the
-    losses must agree."""
+    plain paths (scan GRU, materialised score, ATen stem pool), same weights
+    and batch: the losses must agree."""
     import torch
     from dpc_tpu_torch.core.config import DPCConfig, TrainConfig
     from dpc_tpu_torch.models import dpc
@@ -284,10 +473,12 @@ def _small_step_check() -> None:
         x = torch.randn(4, 4, 5, 64, 64, 3, device=dev,
                         generator=torch.Generator(device=dev).manual_seed(3))
         losses = {}
-        for gru_impl, nce_impl in (("pallas", "fused"), ("scan", "xla")):
+        for gru_impl, nce_impl, stem in (("pallas", "fused", "pallas"),
+                                         ("scan", "xla", "xla")):
             cfg = DPCConfig(img_dim=64, num_seq=4, seq_len=5, pred_step=2,
                             gru_impl=gru_impl, gru_dropout=0.0)
             model = dpc.build_dpc(cfg, dev, seed=0)
+            model.backbone.stem_pool_impl = stem
             tcfg = TrainConfig(batch_size=4, nce_impl=nce_impl)
             step = pretrain_step.make_pretrain_step(
                 cfg, tcfg, model, optim.pretrain_optimizer(model, 1e-3, 1e-5))
@@ -298,6 +489,50 @@ def _small_step_check() -> None:
         expect(err <= 1e-4, f"kernel path and plain path disagree: {losses}")
     finally:
         torch.backends.cudnn.allow_tf32 = True
+
+
+def _profile(fn, path: str | None, label: str) -> None:
+    """torch.profiler over two calls of ``fn``: device busy share and the
+    stem pool's share of device time, and the table appended to ``path``."""
+    if not path:
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile as prof
+
+    with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        t1 = time.perf_counter()
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t1)
+    events = [e for e in p.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    pool_ms = sum(e.self_device_time_total for e in events
+                  if "pool" in e.key.lower()) / 1e3
+    summary = (f"{label}, 2 steps: wall {wall_ms:.1f} ms, device busy "
+               f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%), stem "
+               f"pool kernels {pool_ms:.1f} ms "
+               f"({100 * pool_ms / max(busy_ms, 1e-9):.1f}% of busy)")
+    table = p.key_averages().table(sort_by="self_cuda_time_total",
+                                   row_limit=60)
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "a") as f:
+        f.write(summary + "\n" + table + "\n")
+    log(f"[profile] {summary}; table in {path}")
+
+
+def _read_launches(what: str, n_steps: int, kernels) -> dict:
+    """The launch counts since the last reset; each kernel of the path must
+    have launched once per step."""
+    from dpc_tpu_torch.ops import _build
+
+    launches = dict(_build.LAUNCHES)
+    log(f"[{what}] launches over {n_steps} steps: {launches}")
+    expect(all(launches[k] == n_steps for k in kernels),
+           f"a kernel of the {what} path did not launch once per step: "
+           f"{launches}")
+    return launches
 
 
 def phase_step(profile: str | None) -> dict:
@@ -329,90 +564,222 @@ def phase_step(profile: str | None) -> dict:
     metrics = [step(x, gen) for _ in range(n_steps)]
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = dict(_build.LAUNCHES)
+    launches = _read_launches("step", n_steps, PRETRAIN_KERNELS)
     losses = [float(m["loss"]) for m in metrics]
     top1 = [float(m["top1"]) for m in metrics]
-    log(f"[step] R18-128 B={batch} bf16 gru=pallas nce=fused: "
+    log(f"[step] R18-128 B={batch} bf16 gru=pallas nce=fused stem=auto: "
         f"{n_steps * batch / dt:.2f} clips/s ({1e3 * dt / n_steps:.1f} ms/step,"
         f" peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)")
     log(f"[step] losses {losses}")
     log(f"[step] top1 {top1}")
-    log(f"[step] launches over {n_steps} steps: {launches}")
     expect(all(math.isfinite(v) for v in losses), f"non-finite loss {losses}")
-    expect(all(v > 0 for v in launches.values()),
-           f"a kernel of the path did not run: {launches}")
-
-    if profile:
-        from torch.profiler import ProfilerActivity, profile as prof
-
-        with prof(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as p:
-            t1 = time.perf_counter()
-            for _ in range(2):
-                step(x, gen)
-            torch.cuda.synchronize()
-            wall_ms = 1e3 * (time.perf_counter() - t1)
-        events = p.key_averages()
-        busy_ms = sum(e.self_device_time_total for e in events
-                      if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
-        summary = (f"2 steps: wall {wall_ms:.1f} ms, device busy "
-                   f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%)")
-        table = events.table(sort_by="self_cuda_time_total", row_limit=80)
-        Path(profile).parent.mkdir(parents=True, exist_ok=True)
-        Path(profile).write_text(summary + "\n" + table)
-        log(f"[step] profile: {summary}; table in {profile}")
+    _profile(lambda: step(x, gen), profile, "pretrain R18-128 B=64 bf16")
     return {"launches": launches, "clips_per_s": n_steps * batch / dt}
 
 
 # ---------------------------------------------------------------------------
-# 4. the CLI
+# 4. the LC finetune, eval and dense-test path
 # ---------------------------------------------------------------------------
 
-def phase_cli() -> None:
+def _lc_parts(cfg, ecfg, seed: int = 0):
+    import torch
+    from dpc_tpu_torch.models import lc
+    from dpc_tpu_torch.train import finetune_step, optim
+
+    model = lc.build_lc(cfg, ecfg.num_classes, torch.device("cuda"),
+                        dropout=ecfg.dropout, seed=seed)
+    opt = optim.finetune_optimizer(model, ecfg.lr, ecfg.wd, ecfg.train_what,
+                                   ecfg.backbone_lr_scale)
+    return model, finetune_step.make_finetune_step(cfg, ecfg, model, opt)
+
+
+def _small_lc_check() -> None:
+    """One f32 LC finetune step at a small size through the kernels (K1-K4)
+    and through the plain paths (ATen stem pool, scan GRU), same weights,
+    batch and labels, dropout off: the losses and the updated running
+    statistics must agree."""
+    import torch
+    from dpc_tpu_torch.core.config import DPCConfig, EvalConfig
+    from dpc_tpu_torch.models import lc
+
+    dev = torch.device("cuda")
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        g = torch.Generator(device=dev).manual_seed(5)
+        x = torch.randn(4, 4, 5, 64, 64, 3, device=dev, generator=g)
+        y = torch.randint(0, 11, (4,), device=dev, generator=g)
+        ecfg = EvalConfig(num_classes=11, dropout=0.0, batch_size=4)
+        loss, stats = {}, {}
+        for gru_impl, stem in (("pallas", "pallas"), ("scan", "xla")):
+            cfg = DPCConfig(img_dim=64, num_seq=4, seq_len=5,
+                            gru_impl=gru_impl, gru_dropout=0.0)
+            model, step = _lc_parts(cfg, ecfg)
+            model.backbone.stem_pool_impl = stem
+            loss[stem] = float(step(x, y)["loss"])
+            stats[stem] = torch.cat([v.flatten()
+                                     for v in lc.running_stats(model).values()])
+        err = abs(loss["pallas"] - loss["xla"]) / abs(loss["xla"])
+        serr = rel_err(stats["pallas"], stats["xla"])
+        log(f"[lc] small f32 check: kernel path loss {loss['pallas']}, plain "
+            f"path {loss['xla']}, rel diff {err:.2e}; running stats rel diff "
+            f"{serr:.2e}")
+        expect(err <= 1e-4 and serr <= 1e-4,
+               f"LC kernel path and plain path disagree: {loss}, {serr}")
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+
+
+def phase_lc(profile: str | None) -> dict:
+    import torch
+    from dpc_tpu_torch.core.config import DPCConfig, EvalConfig
     from dpc_tpu_torch.ops import _build
-    from dpc_tpu_torch.train import pretrain
+    from dpc_tpu_torch.train import finetune_step
+
+    _small_lc_check()
+    dev = torch.device("cuda")
+    batch, classes = 32, 101
+    cfg = DPCConfig(compute_dtype="bfloat16", gru_impl="pallas",
+                    gru_dropout=0.1)
+    ecfg = EvalConfig(num_classes=classes, dropout=0.5, train_what="ft",
+                      backbone_lr_scale=0.1, batch_size=batch)
+    model, step = _lc_parts(cfg, ecfg)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn(batch, cfg.num_seq, cfg.seq_len, cfg.img_dim,
+                    cfg.img_dim, 3, device=dev, generator=gen)
+    y = torch.randint(0, classes, (batch,), device=dev, generator=gen)
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        step(x, y, gen)
+    torch.cuda.synchronize()
+
+    n_steps = 10
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    metrics = [step(x, y, gen) for _ in range(n_steps)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = _read_launches("lc", n_steps, LC_KERNELS)
+    losses = [float(m["loss"]) for m in metrics]
+    log(f"[lc] R18-128 8x5 B={batch} bf16 {classes} classes gru=pallas "
+        f"stem=auto: {n_steps * batch / dt:.2f} clips/s "
+        f"({1e3 * dt / n_steps:.1f} ms/step, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)")
+    log(f"[lc] losses {losses}")
+    log(f"[lc] top1 {[float(m['top1']) for m in metrics]}")
+    expect(all(math.isfinite(v) for v in losses), f"non-finite loss {losses}")
+    _profile(lambda: step(x, y, gen), profile,
+             "LC finetune R18-128 8x5 B=32 bf16")
+
+    val = finetune_step.make_finetune_eval_step(cfg, ecfg, model)(x, y)
+    val = {k: float(v) for k, v in val.items()}
+    log(f"[lc] eval step: {val}")
+    expect(all(math.isfinite(v) for v in val.values()), f"eval {val}")
+
+    wb, n_fwd = 32, 10
+    forward = finetune_step.make_test_forward(cfg, ecfg, model)
+    windows = torch.randn(wb, cfg.num_seq, cfg.seq_len, cfg.img_dim,
+                          cfg.img_dim, 3, device=dev, generator=gen)
+    for _ in range(2):
+        forward(windows)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = [forward(windows) for _ in range(n_fwd)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    log(f"[lc] dense-test forward WB={wb}: {n_fwd * wb / dt:.2f} windows/s "
+        f"({1e3 * dt / n_fwd:.1f} ms/forward)")
+    expect(logits[-1].shape == (wb, classes)
+           and bool(torch.isfinite(logits[-1]).all()), "dense-test logits")
+    return {"launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# 5. the CLIs
+# ---------------------------------------------------------------------------
+
+def _run_cli(main, argv, what: str, kernels) -> str:
+    from dpc_tpu_torch.ops import _build
 
     _build.reset_launches()
     buf = io.StringIO()
     with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
         with contextlib.redirect_stdout(buf):
-            pretrain.main(["--dataset", "synthetic", "--nce_impl", "fused",
-                           "--batch_size", "8", "--epochs", "1",
-                           "--steps_per_epoch", "2", "--num_workers", "4",
-                           "--print_freq", "1", "--log_dir", tmp])
+            main(argv + ["--log_dir", tmp])
     out = buf.getvalue()
     for line in out.splitlines():
-        log(f"[cli] {line}")
+        log(f"[{what}] {line}")
+    log(f"[{what}] launches: {dict(_build.LAUNCHES)}")
+    expect(all(_build.LAUNCHES[k] > 0 for k in kernels),
+           f"a kernel did not run in the {what} CLI")
+    return out
+
+
+def phase_cli() -> None:
+    from dpc_tpu_torch.train import evaluate, pretrain
+
+    out = _run_cli(pretrain.main,
+                   ["--dataset", "synthetic", "--nce_impl", "fused",
+                    "--batch_size", "8", "--epochs", "1",
+                    "--steps_per_epoch", "2", "--num_workers", "4",
+                    "--print_freq", "1"], "cli", PRETRAIN_KERNELS)
     line = [ln for ln in out.splitlines() if ln.startswith("epoch 0: train")]
     expect(bool(line) and "(2 steps" in line[0], "CLI did not run 2 steps")
     loss = float(line[0].split("loss")[1].split()[0])
     expect(math.isfinite(loss), f"CLI loss {loss}")
-    log(f"[cli] launches: {dict(_build.LAUNCHES)}")
-    expect(all(v > 0 for v in _build.LAUNCHES.values()),
-           "a kernel did not run in the CLI")
+
+    out = _run_cli(evaluate.main,
+                   ["--dataset", "synthetic", "--batch_size", "8",
+                    "--epochs", "1", "--steps_per_epoch", "2",
+                    "--num_workers", "4", "--print_freq", "1"],
+                   "finetune cli", LC_KERNELS)
+    line = [ln for ln in out.splitlines() if ln.startswith("epoch 0: train")]
+    expect(bool(line) and "(2 steps" in line[0] and "val loss" in line[0],
+           "finetune CLI did not run 2 steps and val")
+    losses = [float(part.split()[0]) for part in line[0].split("loss")[1:]]
+    expect(all(math.isfinite(v) for v in losses), f"finetune CLI {losses}")
+
+    out = _run_cli(evaluate.main,
+                   ["--dataset", "synthetic", "--test", "random",
+                    "--synthetic_videos", "4", "--num_workers", "4"],
+                   "test cli", ("convgru_fwd", "maxpool_relu_fwd"))
+    line = [ln for ln in out.splitlines() if ln.startswith("[test] loss")]
+    expect(bool(line) and "top1" in line[0], "dense test printed no top1")
 
 
 # ---------------------------------------------------------------------------
 
 def kernels_line(k: dict, launches: dict) -> dict:
-    def row(name, src, replaces, key, res):
-        t = res[key]
+    """The per-kernel JSON record: K3-K4 and the pool kernels at the LC
+    flagship shapes with the LC path's launches, K5-K6 at the pretrain
+    shapes with the pretrain path's launches."""
+    def row(name, src, replaces, t, err, n):
         return {"name": name, "route": "cuda", "source": src,
-                "replaces": replaces, "launches": launches[name],
-                "max_abs_err": res[f"{key}_err"], "ms": t["ms"],
-                "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
-                "bound_by": t["bound"][1], "library_ms": t["library_ms"]}
+                "replaces": replaces, "launches": n, "max_abs_err": err,
+                "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+                "library_ms": t["library_ms"]}
 
-    g, n = k["gru"], k["nce"]
+    g, n, p = k["gru_lc"], k["nce"], k["pool"]
+    lc_n, pre_n = launches["lc"], launches["pretrain"]
+    gru_src, nce_src = ("dpc_tpu_torch/csrc/convgru.cu",
+                        "dpc_tpu_torch/csrc/nce.cu")
+    pool_src, pool_tpu = ("dpc_tpu_torch/csrc/maxpool.cu",
+                          "dpc_tpu/ops/maxpool_pallas.py")
     return {"kernels": [
-        row("convgru_fwd", "dpc_tpu_torch/csrc/convgru.cu",
-            "dpc_tpu/ops/convgru_pallas.py:88", "fwd", g),
-        row("convgru_bwd", "dpc_tpu_torch/csrc/convgru.cu",
-            "dpc_tpu/ops/convgru_pallas.py:207", "bwd", g),
-        row("nce_fwd", "dpc_tpu_torch/csrc/nce.cu",
-            "dpc_tpu/ops/nce_pallas.py:97", "fwd", n),
-        row("nce_bwd", "dpc_tpu_torch/csrc/nce.cu",
-            "dpc_tpu/ops/nce_pallas.py:224", "bwd", n),
+        row("convgru_fwd", gru_src, "dpc_tpu/ops/convgru_pallas.py:88",
+            g["fwd"], g["fwd_err"], lc_n["convgru_fwd"]),
+        row("convgru_bwd", gru_src, "dpc_tpu/ops/convgru_pallas.py:207",
+            g["bwd"], g["bwd_err"], lc_n["convgru_bwd"]),
+        row("nce_fwd", nce_src, "dpc_tpu/ops/nce_pallas.py:97",
+            n["fwd"], n["fwd_err"], pre_n["nce_fwd"]),
+        row("nce_bwd", nce_src, "dpc_tpu/ops/nce_pallas.py:224",
+            n["bwd"], n["bwd_err"], pre_n["nce_bwd"]),
+        row("maxpool_relu_fwd", pool_src, f"{pool_tpu}:163", p["fwd"],
+            p["fwd"]["err"], lc_n["maxpool_relu_fwd"]),
+        row("maxpool_relu_bwd", pool_src, f"{pool_tpu}:208", p["bwd"],
+            p["bwd"]["err"], lc_n["maxpool_relu_bwd"]),
+        row("maxpool_bwd_eq", pool_src, f"{pool_tpu}:303", p["eq"],
+            p["eq"]["err"], lc_n["maxpool_bwd_eq"]),
     ]}
 
 
@@ -438,12 +805,14 @@ def main(argv=None) -> int:
         phase_build()
         k = phase_kernels()
         s = phase_step(args.profile or None)
+        lc = phase_lc(args.profile or None)
         phase_cli()
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     log(f"[done] {time.perf_counter() - t0:.1f} s")
-    print(json.dumps(kernels_line(k, s["launches"])))
+    print(json.dumps(kernels_line(k, {"pretrain": s["launches"],
+                                      "lc": lc["launches"]})))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)

@@ -95,6 +95,35 @@ def predict(model: DPC, x: torch.Tensor, *, cfg: DPCConfig,
     return torch.stack(preds, dim=1), gt
 
 
+def extract_context(model: nn.Module, x: torch.Tensor, *, cfg: DPCConfig,
+                    num_blocks: Optional[int] = None, train: bool = False,
+                    generator: Optional[torch.Generator] = None,
+                    order: str = "lc") -> torch.Tensor:
+    """Run the backbone + GRU trunk of ``model`` over the first
+    ``num_blocks`` blocks of ``x [B, N, SL, H, W, 3]`` and return the
+    last-step dense context ``[B, ls, ls, D]`` (f32).
+
+    ``order`` picks the activation/pool order, which differs between the
+    two reference heads and does not commute: "lc" is ReLU then temporal
+    mean (``eval/model_3d_lc.py:53-55``), what the classifier consumes;
+    "dpc" is temporal mean then ReLU (``dpc/model_3d.py:53-56``), what the
+    pretraining aggregator saw."""
+    if order not in ("lc", "dpc"):
+        raise ValueError(f"unknown order {order!r}")
+    b, n, sl, h, w, c = x.shape
+    feat = model.backbone(x.reshape(b * n, sl, h, w, c))
+    if order == "lc":
+        feat = F.relu(feat).float().mean(dim=1)
+    else:
+        feat = F.relu(feat.float().mean(dim=1))
+    ls = cfg.last_size
+    feature = feat.reshape(b, n, ls, ls, cfg.feature_size)
+    _, last_states = convgru.apply_convgru(
+        model.agg, feature[:, :num_blocks], dropout=cfg.gru_dropout,
+        train=train, generator=generator, impl=cfg.gru_impl)
+    return last_states[:, -1]
+
+
 def apply_dpc(model: DPC, x: torch.Tensor, *, cfg: DPCConfig,
               train: bool = True, generator: Optional[torch.Generator] = None
               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

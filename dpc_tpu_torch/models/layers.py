@@ -8,7 +8,11 @@ JAX package's channels-last layout.
 
 BatchNorm for DPC pretraining is torch's ``track_running_stats=False``
 (``dpc/model_3d.py:28``): batch statistics always, biased variance to
-normalise, eps 1e-5.  Under bf16 autocast the native kernels accumulate the
+normalise, eps 1e-5.  The LC classifier keeps running statistics
+(``eval/model_3d_lc.py:26-28``), torch's default, which is ``dpc_tpu``'s
+``batchnorm(state=...)``: batch statistics in train mode with an EMA
+(momentum 0.1) of the mean and the unbiased variance, running statistics in
+eval mode.  Under bf16 autocast the native kernels accumulate the
 statistics in f32.
 """
 
@@ -19,6 +23,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from dpc_tpu_torch.ops import maxpool_cuda
 
 
 def conv3d(in_ch: int, out_ch: int, kernel, stride=1, padding=0) -> nn.Conv3d:
@@ -50,9 +56,21 @@ def conv2d_cl(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     return y.permute(0, 2, 3, 1).reshape(*lead, *y.shape[-2:], y.shape[1])
 
 
-def batchnorm3d(ch: int) -> nn.BatchNorm3d:
-    """Batch-statistics BN (weight 1, bias 0; no running stats)."""
-    return nn.BatchNorm3d(ch, eps=1e-5, track_running_stats=False)
+def batchnorm3d(ch: int, track_running_stats: bool = False
+                ) -> nn.BatchNorm3d:
+    """BN with weight 1, bias 0: batch statistics only, or with running
+    statistics (momentum 0.1, eps 1e-5)."""
+    return nn.BatchNorm3d(ch, eps=1e-5, momentum=0.1,
+                          track_running_stats=track_running_stats)
+
+
+def linear_orthogonal(in_ch: int, out_ch: int) -> nn.Linear:
+    """Linear layer with orthogonal weight and zero bias: the LC head
+    (``eval/model_3d_lc.py:45,67-73``)."""
+    fc = nn.Linear(in_ch, out_ch)
+    nn.init.orthogonal_(fc.weight)
+    nn.init.zeros_(fc.bias)
+    return fc
 
 
 def dropout_mask(shape, rate: float, generator: torch.Generator,
@@ -73,8 +91,32 @@ def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
     return x * dropout_mask(x.shape, rate, generator, x.device).to(x.dtype)
 
 
-def relu_maxpool_stem(x: torch.Tensor) -> torch.Tensor:
+def relu_maxpool_stem(x: torch.Tensor, impl: str = "auto") -> torch.Tensor:
     """The stem's ReLU → 3×3/s2/p1 max-pool over (H, W) of NCDHW ``x``
     (reference ``backbone/resnet_2d3d.py:214``).  Ties route the gradient
-    to the first max, as in the reference."""
-    return F.max_pool3d(F.relu(x), (1, 3, 3), (1, 2, 2), (0, 1, 1))
+    to the first max, as in the reference.
+
+    ``impl`` (the switch of ``dpc_tpu``'s ``relu_maxpool_stem``):
+      * "xla": ``F.max_pool3d(F.relu(x))``;
+      * "pallas": the CUDA kernels K1/K2 (``ops/maxpool_cuda.py``), which
+        take the channels-last-3d activation the backbone makes on the card
+        (anything else raises); the name is kept for switch parity;
+      * "auto": "pallas" for a CUDA tensor, "xla" for a CPU tensor.
+    "sas" and "eqroute" are XLA's own and are not ported.
+    """
+    if impl == "auto":
+        impl = "pallas" if x.is_cuda else "xla"
+    if impl == "xla":
+        return F.max_pool3d(F.relu(x), (1, 3, 3), (1, 2, 2), (0, 1, 1))
+    if impl == "pallas":
+        if x.is_cuda and not x.is_contiguous(
+                memory_format=torch.channels_last_3d):
+            raise ValueError(f"the stem pool kernel takes a channels_last_3d "
+                             f"activation; got strides {x.stride()}")
+        y = maxpool_cuda.relu_maxpool_3x3s2(x.permute(0, 2, 3, 4, 1))
+        return y.permute(0, 4, 1, 2, 3)
+    if impl in ("sas", "eqroute"):
+        raise NotImplementedError(f"stem pool impl {impl!r} is XLA-specific "
+                                  "and not ported to dpc_tpu_torch")
+    raise ValueError(f"unknown stem pool impl {impl!r} "
+                     "(expected auto | xla | pallas)")

@@ -7,7 +7,10 @@ too), the stem never strides time, layer4 keeps 256 planes, and the last
 block of layer4 skips its final ReLU so the DPC head reads a
 pre-activation embedding.
 
-The stem is the literal conv → BN → ReLU → max-pool.  Module names are the
+The stem is the literal conv → BN → ReLU → max-pool; the pool runs
+``layers.relu_maxpool_stem`` with ``stem_pool_impl`` ("auto": the CUDA
+kernels on the card).  ``track_running_stats=True`` builds the LC
+classifier's backbone (``eval/model_3d_lc.py:26-28``).  Module names are the
 reference's (``conv1``, ``bn1``, ``layerL.B.{conv,bn}{i}``,
 ``layerL.B.downsample.{0,1}``).
 """
@@ -85,8 +88,9 @@ def _down_stride(kind: str, stride: int) -> tuple[int, int, int]:
 class Block(nn.Module):
     """BasicBlock or Bottleneck, 2D or 3D, as the spec says."""
 
-    def __init__(self, spec: dict):
+    def __init__(self, spec: dict, track_running_stats: bool = False):
         super().__init__()
+        bn = lambda ch: L.batchnorm3d(ch, track_running_stats)
         kind, in_ch, planes, stride = (spec["kind"], spec["in_ch"],
                                        spec["planes"], spec["stride"])
         self.final_relu = spec["final_relu"]
@@ -95,23 +99,23 @@ class Block(nn.Module):
         if self.bottleneck:
             out_ch = planes * 4
             self.conv1 = L.conv3d(in_ch, planes, 1)
-            self.bn1 = L.batchnorm3d(planes)
+            self.bn1 = bn(planes)
             self.conv2 = L.conv3d(planes, planes, k, st, pad)
-            self.bn2 = L.batchnorm3d(planes)
+            self.bn2 = bn(planes)
             self.conv3 = L.conv3d(planes, out_ch, 1)
-            self.bn3 = L.batchnorm3d(out_ch)
+            self.bn3 = bn(out_ch)
         else:
             out_ch = planes
             self.conv1 = L.conv3d(in_ch, planes, k, st, pad)
-            self.bn1 = L.batchnorm3d(planes)
+            self.bn1 = bn(planes)
             k2, st2, pad2 = _conv_shape(kind, 1)
             self.conv2 = L.conv3d(planes, planes, k2, st2, pad2)
-            self.bn2 = L.batchnorm3d(planes)
+            self.bn2 = bn(planes)
         self.downsample = None
         if spec["downsample"]:
             self.downsample = nn.Sequential(
                 L.conv3d(in_ch, out_ch, 1, _down_stride(kind, stride)),
-                L.batchnorm3d(out_ch))
+                bn(out_ch))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = F.relu(self.bn1(self.conv1(x)))
@@ -126,19 +130,23 @@ class Block(nn.Module):
 class ResNet2d3d(nn.Module):
     """x: NDHWC ``[B, T, H, W, 3]`` → ``[B, T/4, H/32, W/32, D]`` (pre-ReLU)."""
 
-    def __init__(self, network: str = "resnet18"):
+    def __init__(self, network: str = "resnet18",
+                 track_running_stats: bool = False,
+                 stem_pool_impl: str = "auto"):
         super().__init__()
         self.network = network
+        self.stem_pool_impl = stem_pool_impl
         self.conv1 = L.conv3d(3, 64, (1, 7, 7), (1, 2, 2), (0, 3, 3))
-        self.bn1 = L.batchnorm3d(64)
+        self.bn1 = L.batchnorm3d(64, track_running_stats)
         for si, stage in enumerate(_block_specs(network)):
-            setattr(self, f"layer{si + 1}",
-                    nn.Sequential(*[Block(spec) for spec in stage]))
+            setattr(self, f"layer{si + 1}", nn.Sequential(
+                *[Block(spec, track_running_stats) for spec in stage]))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # NDHWC → NCDHW is a view with channels_last_3d strides
         h = x.permute(0, 4, 1, 2, 3)
-        h = L.relu_maxpool_stem(self.bn1(self.conv1(h)))
+        h = L.relu_maxpool_stem(self.bn1(self.conv1(h)),
+                                self.stem_pool_impl)
         for si in range(4):
             h = getattr(self, f"layer{si + 1}")(h)
         return h.permute(0, 2, 3, 4, 1)

@@ -28,12 +28,14 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_kernels"
-SOURCES = ("convgru", "nce")
+SOURCES = ("convgru", "nce", "maxpool")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES: dict[str, int] = {"convgru_fwd": 0, "convgru_bwd": 0,
-                            "nce_fwd": 0, "nce_bwd": 0}
+                            "nce_fwd": 0, "nce_bwd": 0,
+                            "maxpool_relu_fwd": 0, "maxpool_relu_bwd": 0,
+                            "maxpool_bwd_eq": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -107,6 +109,9 @@ _SIGS = {
                 "convgru_bwd": 23 * ["p"] + 4 * ["i"] + ["p"]},
     "nce": {"nce_fwd": 6 * ["p"] + 3 * ["i"] + ["p"],
             "nce_bwd": 6 * ["p"] + 3 * ["i"] + ["p"]},
+    "maxpool": {fn: 3 * ["p"] + ["l"] + 4 * ["i"] + ["p"]
+                for fn in ("maxpool_relu_fwd", "maxpool_relu_bwd",
+                           "maxpool_bwd_eq")},
 }
 
 
@@ -117,7 +122,8 @@ def library(name: str) -> ctypes.CDLL:
         if lib is None:
             build((name,))
             lib = ctypes.CDLL(str(_lib_path(name)))
-            kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int}
+            kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int,
+                     "l": ctypes.c_longlong}
             for fn, sig in _SIGS[name].items():
                 f = getattr(lib, fn)
                 f.argtypes = [kinds[s] for s in sig]

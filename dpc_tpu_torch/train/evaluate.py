@@ -1,0 +1,409 @@
+"""Downstream evaluation CLI: LC finetune / linear probe / dense test (port
+of ``dpc_tpu/train/evaluate.py``).
+
+Keeps the JAX CLI's flag names for what it runs and adds ``--device``
+(default ``cuda``).  This slice runs the synthetic dataset on one device:
+the finetune epochs with the multi-step-restart LR schedule and a
+validation pass per epoch, and ``--test random``, the dense test of
+``run_test`` (every video cut into windows, windows pooled into a fixed
+``--window_batch``, softmax averaged per video, top-1/top-5, the confusion
+matrix).  A flag that needs what is not ported yet (frame datasets,
+checkpoints, device augmentation, five-crop, several devices) raises a
+clear error.
+
+Usage:
+  python -m dpc_tpu_torch.train.evaluate --dataset synthetic --epochs 1 \
+      --steps_per_epoch 2 --batch_size 8
+  python -m dpc_tpu_torch.train.evaluate --dataset synthetic --test random \
+      --synthetic_videos 4 --window_batch 8
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import queue
+import threading
+import time
+
+import numpy as np
+import torch
+
+from dpc_tpu_torch.core.config import (DataConfig, DPCConfig, EvalConfig,
+                                       ExperimentConfig, TrainConfig,
+                                       resolve_device)
+from dpc_tpu_torch.data import augment
+from dpc_tpu_torch.data.loader import ClipLoader
+from dpc_tpu_torch.data.synthetic import SyntheticVideoDataset
+from dpc_tpu_torch.models import lc
+from dpc_tpu_torch.train import finetune_step, optim
+from dpc_tpu_torch.train.metrics import (AccuracyTable, ConfusionMeter,
+                                         MetricBundle, write_log)
+
+NUM_CLASSES = {"ucf101": 101, "hmdb51": 51, "synthetic": 8}
+LR_MILESTONES = {  # eval/test.py:94-98
+    ("hmdb51", None): (150, 250, 300),
+    ("ucf101", 224): (300, 400, 500),
+}
+LC_SEED = 666  # the reference's LC constructor seed (eval/model_3d_lc.py:16)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        description="DPC finetune / linear-probe / test (PyTorch/CUDA)")
+    # reference flag set (eval/test.py:25-48)
+    p.add_argument("--net", default="resnet18")
+    p.add_argument("--model", default="lc", choices=["lc"])
+    p.add_argument("--dataset", default="ucf101",
+                   choices=["ucf101", "hmdb51", "synthetic"])
+    p.add_argument("--num_class", default=0, type=int,
+                   help="override the per-dataset class count")
+    p.add_argument("--split", default=1, type=int)
+    p.add_argument("--seq_len", default=5, type=int)
+    p.add_argument("--num_seq", default=8, type=int)
+    p.add_argument("--ds", default=3, type=int)
+    p.add_argument("--batch_size", default=4, type=int)
+    p.add_argument("--lr", default=1e-3, type=float)
+    p.add_argument("--wd", default=1e-3, type=float)
+    p.add_argument("--dropout", default=0.5, type=float)
+    p.add_argument("--epochs", default=100, type=int)
+    p.add_argument("--start-epoch", default=0, type=int)
+    p.add_argument("--print_freq", default=5, type=int)
+    p.add_argument("--reset_lr", action="store_true")
+    p.add_argument("--prefix", default="tmp")
+    p.add_argument("--train_what", default="ft", choices=["ft", "last"])
+    p.add_argument("--img_dim", default=128, type=int)
+    p.add_argument("--resume", default="")
+    p.add_argument("--pretrain", default="")
+    p.add_argument("--test", default="",
+                   help="'random' tests random weights; a checkpoint path "
+                        "is not ported yet")
+    # additions of dpc_tpu
+    p.add_argument("--data_root", default="")
+    p.add_argument("--compute_dtype", default="bfloat16",
+                   choices=["float32", "bfloat16"])
+    p.add_argument("--num_devices", default=0, type=int)
+    p.add_argument("--model_parallel", default=1, type=int)
+    p.add_argument("--num_workers", default=8, type=int)
+    p.add_argument("--prefetch", default=4, type=int)
+    p.add_argument("--worker_mode", default="thread",
+                   choices=["thread", "process"])
+    p.add_argument("--seed", default=0, type=int)
+    p.add_argument("--synthetic_videos", default=32, type=int)
+    p.add_argument("--steps_per_epoch", default=0, type=int,
+                   help="cap train and val steps per epoch (0 = full epoch)")
+    p.add_argument("--log_dir", default="log_eval")
+    p.add_argument("--backbone_lr_scale", default=0.1, type=float)
+    p.add_argument("--remat", action="store_true",
+                   help="recompute the LC forward in the backward")
+    p.add_argument("--save_every_steps", default=0, type=int)
+    p.add_argument("--test_tail_window", action="store_true",
+                   help="append a final tail window so trailing frames are "
+                        "evaluated (the reference strides only)")
+    p.add_argument("--window_batch", default=0, type=int,
+                   help="dense-test pooled window rows per forward "
+                        "(0 = 8)")
+    p.add_argument("--five_crop", action="store_true")
+    p.add_argument("--multihost", action="store_true")
+    p.add_argument("--device_augment", action="store_true")
+    # addition of dpc_tpu_torch
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu; cuda without a card fails")
+    return p
+
+
+def _reject_unsupported(args) -> None:
+    later = {
+        "--dataset": (args.dataset != "synthetic",
+                      "queue 1 item 10 (frame datasets)"),
+        "--resume": (bool(args.resume), "queue 1 item 10 (checkpoints)"),
+        "--reset_lr": (args.reset_lr, "queue 1 item 10 (checkpoints)"),
+        "--pretrain": (bool(args.pretrain),
+                       "queue 1 item 14 (interchange)"),
+        "--test": (args.test not in ("", "random"),
+                   "queue 1 item 10 (checkpoints)"),
+        "--save_every_steps": (args.save_every_steps > 0,
+                               "queue 1 item 10 (checkpoints)"),
+        "--device_augment": (args.device_augment,
+                             "queue 1 item 12 (device augmentation)"),
+        "--five_crop": (args.five_crop,
+                        "queue 1 item 12 (device augmentation)"),
+        "--num_devices": (args.num_devices > 1,
+                          "queue 1 item 13 (multi-GPU)"),
+        "--model_parallel": (args.model_parallel > 1,
+                             "queue 1 item 13 (multi-GPU)"),
+        "--multihost": (args.multihost, "queue 1 item 13 (multi-GPU)"),
+    }
+    for flag, (bad, item) in later.items():
+        if bad:
+            raise SystemExit(f"{flag} is not ported to dpc_tpu_torch yet "
+                             f"(ROADMAP.md {item})")
+
+
+def config_from_args(args) -> ExperimentConfig:
+    num_classes = args.num_class or NUM_CLASSES[args.dataset]
+    milestones = LR_MILESTONES.get(
+        (args.dataset, args.img_dim if args.dataset == "ucf101" else None),
+        LR_MILESTONES.get((args.dataset, None), (60, 80, 100)))
+    return ExperimentConfig(
+        # gru_impl has no flag: the CLI runs the recurrence kernel, as the
+        # pretrain CLI does
+        model=DPCConfig(img_dim=args.img_dim, num_seq=args.num_seq,
+                        seq_len=args.seq_len, network=args.net,
+                        compute_dtype=args.compute_dtype, gru_impl="pallas"),
+        data=DataConfig(dataset=args.dataset, data_root=args.data_root,
+                        synthetic_num_videos=args.synthetic_videos,
+                        split=args.split, downsample=args.ds,
+                        num_workers=args.num_workers,
+                        worker_mode=args.worker_mode,
+                        prefetch=args.prefetch,
+                        test_tail_window=args.test_tail_window),
+        train=TrainConfig(batch_size=args.batch_size, seed=args.seed,
+                          num_devices=args.num_devices,
+                          model_parallel=args.model_parallel,
+                          print_freq=args.print_freq),
+        eval=EvalConfig(num_classes=num_classes, dropout=args.dropout,
+                        train_what=args.train_what, lr=args.lr, wd=args.wd,
+                        epochs=args.epochs, batch_size=args.batch_size,
+                        lr_milestones=milestones,
+                        backbone_lr_scale=args.backbone_lr_scale,
+                        remat=args.remat),
+    )
+
+
+def get_dataset(cfg: ExperimentConfig, mode: str) -> SyntheticVideoDataset:
+    """The synthetic dataset of ``mode`` with the finetune transforms:
+    train and val a random sized crop, test the centre crop."""
+    m, d = cfg.model, cfg.data
+    crop = augment.RandomSizedCrop(size=m.img_dim,
+                                   p=0.0 if mode == "test" else 1.0)
+    return SyntheticVideoDataset(
+        transform=augment.Compose([crop, augment.Normalize()]),
+        num_videos=d.synthetic_num_videos, video_len=d.synthetic_video_len,
+        frame_size=max(m.img_dim, 130), num_seq=m.num_seq,
+        seq_len=m.seq_len, downsample=d.downsample, mode=mode,
+        return_label=True, num_classes=NUM_CLASSES["synthetic"],
+        seed={"val": 2, "test": 3}.get(mode, 0),
+        tail_window=d.test_tail_window)
+
+
+def run_test(cfg: ExperimentConfig, model: lc.LC, exp_dir: str, *,
+             window_batch: int = 0) -> tuple[float, float]:
+    """Dense evaluation (``eval/test.py:303-342``): every video → windows →
+    softmax averaged over its windows → top-1/top-5 and the confusion
+    matrix.  Windows are pooled across videos into one fixed
+    ``[WB, N, SL, H, W, 3]`` batch (the tail batch padded with repeats that
+    are dropped), and the host renders videos on a worker thread while the
+    device runs.  Returns (loss, top1)."""
+    e = cfg.eval
+    device = next(model.parameters()).device
+    ds = get_dataset(cfg, "test")
+    wb = window_batch or 8
+    forward = finetune_step.make_test_forward(cfg.model, e, model)
+    confusion = ConfusionMeter(e.num_classes)
+    top1s, top5s, losses = [], [], []
+    q: queue.Queue = queue.Queue(maxsize=4)
+
+    def producer():
+        rng = np.random.default_rng(0)
+        try:
+            for i in range(len(ds)):
+                q.put((i, ds.sample(i, rng)))
+        except Exception as exc:  # surfaced to the consumer below
+            q.put(exc)
+        finally:
+            q.put(None)
+
+    threading.Thread(target=producer, daemon=True).start()
+
+    buf: list[np.ndarray] = []       # window slices pending a forward
+    meta: list[tuple[int, int]] = []  # (video, rows) per slice
+    chunks: dict[int, list[np.ndarray]] = {}
+    counts: dict[int, int] = {}
+    labels: dict[int, int] = {}
+    n_windows = 0
+
+    def finalize(vid: int) -> None:
+        logits = np.concatenate(chunks.pop(vid), axis=0)  # [nw, classes]
+        label = labels.pop(vid)
+        z = logits - logits.max(axis=-1, keepdims=True)
+        probs = np.exp(z)
+        probs /= probs.sum(axis=-1, keepdims=True)
+        order = np.argsort(-probs.mean(axis=0))
+        top1s.append(float(order[0] == label))
+        top5s.append(float(label in order[:5]))
+        mean_logits = logits.mean(axis=0)
+        zl = mean_logits - mean_logits.max()
+        losses.append(float(np.log(np.exp(zl).sum()) - zl[label]))
+        confusion.update(np.asarray([order[0]]), np.asarray([label]))
+
+    def flush() -> None:
+        nonlocal buf, meta, n_windows
+        if not meta:
+            return
+        rows = np.concatenate(buf, axis=0)
+        r = rows.shape[0]
+        n_windows += r
+        if r < wb:  # tail batch: pad with repeats, dropped below
+            rows = np.concatenate([rows, np.repeat(rows[-1:], wb - r, 0)])
+        x = torch.from_numpy(rows).to(device)
+        logits = forward(x).float().cpu().numpy()[:r]
+        ofs = 0
+        for vid, cnt in meta:
+            chunks.setdefault(vid, []).append(logits[ofs:ofs + cnt])
+            ofs += cnt
+            if sum(a.shape[0] for a in chunks[vid]) == counts[vid]:
+                finalize(vid)
+        buf, meta = [], []
+
+    t0 = time.perf_counter()
+    space = wb
+    while True:
+        item = q.get()
+        if item is None:
+            break
+        if isinstance(item, Exception):
+            raise item
+        vid, (clip, label) = item
+        counts[vid], labels[vid] = clip.shape[0], int(label)
+        ofs = 0
+        while ofs < clip.shape[0]:
+            take = min(space, clip.shape[0] - ofs)
+            buf.append(clip[ofs:ofs + take])
+            meta.append((vid, take))
+            ofs += take
+            space -= take
+            if space == 0:
+                flush()
+                space = wb
+    flush()
+    dt = time.perf_counter() - t0
+
+    top1, top5 = float(np.mean(top1s)), float(np.mean(top5s))
+    loss = float(np.mean(losses))
+    print(f"[test] loss {loss:.4f}; top1 {top1:.4f}; top5 {top5:.4f}")
+    print(f"[test] {n_windows} windows / {len(ds)} videos in {dt:.1f}s = "
+          f"{n_windows / dt:.1f} windows/s (WB={wb})")
+    table = AccuracyTable()
+    for t_cls in range(e.num_classes):
+        cnt = int(confusion.mat[:, t_cls].sum())
+        if cnt:
+            table.dict[t_cls] = {"count": cnt,
+                                 "correct": int(confusion.mat[t_cls, t_cls])}
+    table.print_table("test")
+    os.makedirs(exp_dir, exist_ok=True)
+    confusion.save(os.path.join(exp_dir, "confusion_matrix.txt"))
+    write_log(content=f"loss: {loss:.4f}; top1: {top1:.4f}; "
+                      f"top5: {top5:.4f}",
+              epoch=0, filename=os.path.join(exp_dir, "test_log.md"))
+    return loss, top1
+
+
+def _run_epoch(fn, loader, meters: MetricBundle, *, max_steps: int,
+               print_freq: int, label: str) -> int:
+    """Feed ``loader``'s batches to ``fn(x, y) -> metrics``; returns the
+    number of steps run."""
+    n = 0
+    for idx, (clips, labels) in enumerate(loader):
+        if max_steps and idx >= max_steps:
+            break
+        metrics = {k: float(v) for k, v in fn(clips, labels).items()}
+        meters.update(metrics, n=clips.shape[0])
+        n += 1
+        if idx % print_freq == 0:
+            print(f"{label} step {idx}: loss {metrics['loss']:.4f} "
+                  f"top1 {metrics['top1']:.4f}")
+    return n
+
+
+def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
+    _reject_unsupported(args)
+    cfg = config_from_args(args)
+    m, e, t = cfg.model, cfg.eval, cfg.train
+    device = resolve_device(args.device)
+    print(f"device: {device}"
+          + (f" ({torch.cuda.get_device_name(device)})"
+             if device.type == "cuda" else "")
+          + f"; dtype={m.compute_dtype}")
+
+    exp_dir = os.path.join(
+        args.log_dir,
+        f"{args.prefix}_{args.dataset}-{m.img_dim}-sp{args.split}"
+        f"_r{m.network[6:]}_lc_bs{t.batch_size}_lr{e.lr}"
+        f"_wd{e.wd}_dp{e.dropout}_train-{e.train_what}")
+    os.makedirs(exp_dir, exist_ok=True)
+    with open(os.path.join(exp_dir, "config.json"), "w") as f:
+        f.write(cfg.to_json())
+
+    model = lc.build_lc(m, e.num_classes, device, dropout=e.dropout,
+                        seed=LC_SEED)
+    if args.test:
+        print("[warning] testing RANDOM weights")
+        run_test(cfg, model, exp_dir, window_batch=args.window_batch)
+        return
+
+    opt = optim.finetune_optimizer(model, e.lr, e.wd, e.train_what,
+                                   e.backbone_lr_scale)
+    n_total = sum(p.numel() for p in model.parameters())
+    trunk = sum(p.numel() for name in optim.TRUNK
+                for p in getattr(model, name).parameters())
+    print(f"params: {n_total / 1e6:.2f}M total; trunk {trunk / 1e6:.2f}M "
+          f"({'frozen' if e.train_what == 'last' else f'lr x{e.backbone_lr_scale}'}"
+          f"); head at full lr")
+    step = finetune_step.make_finetune_step(m, e, model, opt)
+    eval_step = finetune_step.make_finetune_eval_step(m, e, model)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(t.seed)
+
+    def loader(mode: str, seed: int) -> ClipLoader:
+        return ClipLoader(get_dataset(cfg, mode), t.batch_size,
+                          num_workers=cfg.data.num_workers,
+                          worker_mode=cfg.data.worker_mode,
+                          prefetch_batches=cfg.data.prefetch, seed=seed)
+
+    def to_device(clips, labels):
+        return (torch.from_numpy(np.ascontiguousarray(clips)).to(device),
+                torch.from_numpy(labels).to(device))
+
+    train_loader, val_loader = loader("train", t.seed), loader("val",
+                                                               t.seed + 1)
+    print(f"train videos: {len(train_loader.dataset)}; "
+          f"val videos: {len(val_loader.dataset)}")
+    best_acc = 0.0
+    try:
+        for epoch in range(args.start_epoch, e.epochs):
+            train_loader.set_epoch(epoch)
+            val_loader.set_epoch(epoch)
+            lr_scale = optim.multistep_restart_lr(
+                epoch, 1.0, e.lr_milestones, e.lr_gamma, e.lr_repeat)
+            meters, vmeters = MetricBundle(), MetricBundle()
+            t0 = time.perf_counter()
+            n = _run_epoch(
+                lambda x, y: step(*to_device(x, y), gen, lr_scale),
+                train_loader, meters, max_steps=args.steps_per_epoch,
+                print_freq=t.print_freq, label=f"epoch {epoch} train")
+            dt = time.perf_counter() - t0
+            nv = _run_epoch(
+                lambda x, y: eval_step(*to_device(x, y)), val_loader,
+                vmeters, max_steps=args.steps_per_epoch,
+                print_freq=t.print_freq, label=f"epoch {epoch} val")
+            tr, va = meters.averages(), vmeters.averages()
+            print(f"epoch {epoch}: train loss {tr.get('loss', 0.0):.4f} "
+                  f"top1 {tr.get('top1', 0.0):.4f} ({n} steps, {dt:.1f} s) "
+                  f"| val loss {va.get('loss', 0.0):.4f} top1 "
+                  f"{va.get('top1', 0.0):.4f} ({nv} steps)")
+            best_acc = max(best_acc, va.get("top1", 0.0))
+            write_log(content=f"train top1 {tr.get('top1', 0.0):.4f}; "
+                              f"val top1 {va.get('top1', 0.0):.4f}",
+                      epoch=epoch,
+                      filename=os.path.join(exp_dir, "train_log.md"))
+    finally:
+        train_loader.close()
+        val_loader.close()
+    print(f"Finetune from ep {args.start_epoch} to ep {e.epochs} finished; "
+          f"best val top1 {best_acc:.4f}")
+
+
+if __name__ == "__main__":
+    main()

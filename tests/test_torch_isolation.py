@@ -23,6 +23,10 @@ for name in names:
 leaked = sorted(k for k in sys.modules
                 if k == "dpc_tpu" or k.startswith("dpc_tpu."))
 assert not leaked, leaked
+# the LC slice's modules, and the pool kernels' wrapper without nvcc
+for name in ("models.lc", "ops.maxpool_cuda", "train.finetune_step",
+             "train.evaluate", "train.metrics"):
+    assert "dpc_tpu_torch." + name in names, name
 print(len(names))
 """
 
@@ -32,7 +36,7 @@ def test_port_imports_neither_jax_nor_dpc_tpu():
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20   # every module was imported
+    assert int(out.stdout.strip()) >= 28   # every module was imported
 
 
 def test_chip_smoke_source_imports_no_jax():
@@ -44,11 +48,13 @@ def test_chip_smoke_source_imports_no_jax():
 
 def test_cuda_request_without_card_raises(monkeypatch):
     from dpc_tpu_torch.core.config import resolve_device
-    from dpc_tpu_torch.train import pretrain
+    from dpc_tpu_torch.train import evaluate, pretrain
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device(None)
     with pytest.raises(RuntimeError, match="CUDA"):
         pretrain.main(["--dataset", "synthetic", "--device", "cuda"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        evaluate.main(["--dataset", "synthetic", "--device", "cuda"])
     assert resolve_device("cpu").type == "cpu"

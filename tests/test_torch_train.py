@@ -1,7 +1,8 @@
-"""The slice end to end on the CPU: one f32 train step of the port
+"""The pretrain path end to end on the CPU: one f32 train step of the port
 (``gru_impl="pallas"``, ``nce_impl="fused"``, plain kernel versions on
 the CPU) against dpc_tpu's ``make_pretrain_step`` on a one-device mesh,
-same weights, same batch, dropout off; and the CLI.
+same weights, same batch, dropout off, and a three-step loss envelope;
+the pretrain CLI; and the finetune / dense-test CLI.
 
 Tolerances: loss 1e-4 relative and top-k exact (f32, two conv libraries).
 The first Adam step moves every parameter by about lr·g/(|g| + eps), so
@@ -31,7 +32,7 @@ from dpc_tpu.train import pretrain_step as jax_step
 from dpc_tpu_torch.core.config import DPCConfig, TrainConfig
 from dpc_tpu_torch.models import dpc
 from dpc_tpu_torch.ops import _build
-from dpc_tpu_torch.train import optim, pretrain, pretrain_step
+from dpc_tpu_torch.train import evaluate, optim, pretrain, pretrain_step
 from dpc_tpu_torch.utils.weights import dpc_state_dict_from_jax
 
 SHAPE = dict(img_dim=32, num_seq=3, seq_len=4, pred_step=1, gru_dropout=0.0)
@@ -107,3 +108,74 @@ def test_cli_runs_two_steps_on_cpu(tmp_path, capsys):
     assert list(tmp_path.glob("*/config.json"))
     with pytest.raises(SystemExit, match="ROADMAP"):
         pretrain.main(["--device", "cpu", "--dataset", "ucf101"])
+
+
+def test_pretrain_loss_envelope_over_three_steps():
+    """Three f32 steps of the port against dpc_tpu's make_pretrain_step,
+    same weights and batches, dropout off.  Envelope, in the manner of
+    tests/test_train_parity.py: the first loss to 1e-4 relative (one
+    forward); the later ones to 5e-2, since after an Adam step a gradient
+    within f32 noise of zero may flip the sign of its lr-sized update."""
+    jcfg = JaxDPCConfig(**SHAPE)
+    jparams = jax_dpc.init_dpc(jax.random.PRNGKey(2), jcfg)
+    model = dpc.DPC(DPCConfig(**SHAPE))
+    model.load_state_dict(
+        dpc_state_dict_from_jax(jax.tree.map(np.asarray, jparams)),
+        strict=True)
+    mesh = meshlib.make_mesh(1)
+    tx = jax_optim.pretrain_optimizer(jparams, LR, WD)
+    state = meshlib.replicate(mesh, jax_step.TrainState(
+        jparams, tx.init(jparams), jnp.zeros((), jnp.int32)))
+    jstep = jax_step.make_pretrain_step(
+        jcfg, JaxTrainConfig(batch_size=B, lr=LR, wd=WD, negatives="local"),
+        mesh, tx)
+    step = pretrain_step.make_pretrain_step(
+        DPCConfig(**SHAPE, gru_impl="pallas"),
+        TrainConfig(batch_size=B, lr=LR, wd=WD, nce_impl="fused"), model,
+        optim.pretrain_optimizer(model, LR, WD))
+    rng = np.random.default_rng(3)
+    jl, tl = [], []
+    for i in range(3):
+        x = rng.normal(size=(B, 3, 4, 32, 32, 3)).astype(np.float32)
+        state, jm = jstep(state, meshlib.shard_batch(mesh, jnp.asarray(x)),
+                          jax.random.PRNGKey(i))
+        jl.append(float(jm["loss"]))
+        tl.append(float(step(torch.tensor(x))["loss"]))
+    np.testing.assert_allclose(tl[0], jl[0], rtol=1e-4)
+    np.testing.assert_allclose(tl, jl, rtol=5e-2)
+    assert all(math.isfinite(v) for v in tl)
+
+
+def _finetune_cli(tmp_path, *extra):
+    evaluate.main(["--device", "cpu", "--dataset", "synthetic",
+                   "--img_dim", "32", "--num_seq", "3", "--seq_len", "4",
+                   "--num_workers", "2", "--compute_dtype", "float32",
+                   "--log_dir", str(tmp_path), *extra])
+
+
+def test_finetune_cli_trains_validates_and_tests_on_cpu(tmp_path, capsys):
+    _finetune_cli(tmp_path, "--batch_size", "2", "--synthetic_videos", "4",
+                  "--steps_per_epoch", "2", "--epochs", "1")
+    out = capsys.readouterr().out
+    line = [ln for ln in out.splitlines() if ln.startswith("epoch 0: train")]
+    assert line and "(2 steps" in line[0] and "val loss" in line[0], out
+    losses = [float(p.split()[0]) for p in line[0].split("loss")[1:]]
+    assert len(losses) == 2 and all(math.isfinite(v) for v in losses)
+    assert list(tmp_path.glob("*/config.json"))
+    _finetune_cli(tmp_path, "--test", "random", "--synthetic_videos", "2")
+    out = capsys.readouterr().out
+    line = [ln for ln in out.splitlines() if ln.startswith("[test] loss")]
+    assert line and math.isfinite(float(line[0].split()[2].rstrip(";")))
+    # 256-frame videos at ds 3 are 21 blocks of 4: 19 windows of 3 blocks
+    assert "38 windows / 2 videos" in out
+    assert list(tmp_path.glob("*/confusion_matrix.txt"))
+
+
+@pytest.mark.parametrize("flag", [
+    ["--dataset", "ucf101"], ["--resume", "run"], ["--pretrain", "dpc.pth"],
+    ["--test", "run"], ["--save_every_steps", "10"], ["--device_augment"],
+    ["--five_crop"], ["--num_devices", "2"], ["--multihost"]])
+def test_finetune_cli_rejects_unported_flags(tmp_path, flag):
+    args = ["--dataset", "synthetic", *flag]
+    with pytest.raises(SystemExit, match="ROADMAP"):
+        _finetune_cli(tmp_path, *args)
