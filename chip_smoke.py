@@ -5,17 +5,21 @@ step and the LC finetune, eval and dense-test path at their full width.
     python3 chip_smoke.py [--profile PATH]
 
 Phases, each printing its facts before the next starts:
-  1. build    compile csrc/*.cu for sm_90a (one nvcc per source, in parallel)
+  1. build    compile csrc/*.cu for sm_90a (one nvcc per source, in
+              parallel); count the tensor-core instructions (HGMMA, HMMA)
+              in the SASS of the nce library
   2. kernels  K-GRU-F/B, K-NCE-F/B and the stem pool's K1/K2/K8 against
               their plain versions on the card, at the pretrain and LC
-              shapes, the 6144-row NCE shape, ragged shapes and data with
-              exact ties, with f32 matmul and cuDNN TF32 off; values and
-              grads; the stem activation's layout as the backbone makes it
+              shapes, the 6144-row NCE shape, R50's D=1024, a D that is
+              not a multiple of 32, ragged shapes and data with exact ties,
+              with f32 matmul and cuDNN TF32 off; values and grads; the
+              stem activation's layout as the backbone makes it
   3. step     a small f32 step through the kernels against the same step
               through the plain paths; then the pretrain flagship R18-128,
               B=64, bf16 train step (gru_impl="pallas", nce_impl="fused",
               stem pool "auto"): 2 warm-up and 10 timed steps, with the
-              kernels' launch counts read around the timed steps
+              kernels' launch counts read around the timed steps; then
+              the same step with nce_impl="xla" in turns with it
   4. lc       the same check for one small f32 LC finetune step; then the
               LC flagship R18-128, 8x5, B=32, bf16, 101 classes: 2 warm-up
               and 10 timed finetune steps with the launch counts read
@@ -36,9 +40,13 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import io
 import json
 import math
+import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -47,10 +55,12 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# NVIDIA H100 SXM data sheet: HBM rate and dense f32 rate on the CUDA cores
-# (the kernels compute in f32 without tensor cores).
+# NVIDIA H100 SXM data sheet: HBM rate, dense f32 rate on the CUDA cores
+# (the GRU and pool kernels), dense TF32 rate of the tensor cores (the NCE
+# kernels, whose f32-accurate products take three TF32 passes).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 
 TOL_VALUE = 1e-5   # max |kernel − plain| / max |plain|, forward values
 TOL_GRAD = 1e-4    # the same for gradients (longer f32 reductions)
@@ -91,8 +101,9 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+def bound_ms(nbytes: float, flops: float,
+             rate: float = F32_FLOPS) -> tuple[float, str]:
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, flops / rate * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -109,6 +120,38 @@ def expect(ok: bool, what: str) -> None:
 # 1. build
 # ---------------------------------------------------------------------------
 
+def _cuobjdump() -> str:
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    cands = [Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin"
+             / "cuobjdump"]
+    try:
+        import triton
+        cands.append(Path(triton.__file__).parent / "backends" / "nvidia"
+                     / "bin" / "cuobjdump")
+    except ImportError:
+        pass
+    for cand in cands:
+        if cand.exists():
+            return str(cand)
+    raise Failed("cuobjdump not found (neither the CUDA toolkit's bin/ nor "
+                 "triton/backends/nvidia/bin/): cannot show that the nce "
+                 "library uses the tensor cores")
+
+
+def tensor_core_instructions(name: str) -> dict:
+    """Counts of HGMMA (wgmma) and HMMA (mma.sync) in the SASS of library
+    ``name``."""
+    from dpc_tpu_torch.ops import _build
+
+    sass = subprocess.run([_cuobjdump(), "-sass", str(_build.lib_path(name))],
+                          capture_output=True, text=True, timeout=300)
+    expect(sass.returncode == 0, f"cuobjdump failed: {sass.stderr}")
+    return {op: len(re.findall(rf"\b{op}\b", sass.stdout))
+            for op in ("HGMMA", "HMMA")}
+
+
 def phase_build() -> None:
     from dpc_tpu_torch.ops import _build
 
@@ -118,10 +161,14 @@ def phase_build() -> None:
         f"; total {time.perf_counter() - t0:.1f} s")
     for name in _build.SOURCES:
         for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if "Used" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
     for name in _build.SOURCES:
         _build.library(name)
+    tc = tensor_core_instructions("nce")
+    log(f"[build] nce SASS tensor-core instructions: {tc}")
+    expect(tc["HGMMA"] + tc["HMMA"] > 0,
+           "the nce library holds no tensor-core instruction")
 
 
 # ---------------------------------------------------------------------------
@@ -244,24 +291,30 @@ def check_nce(r, c, d, shift, timed: bool) -> dict:
         def library():
             return torch.logsumexp(rows @ cols.t(), dim=-1)
 
+        # bound: the FLOPs the function needs, as three TF32 passes on the
+        # tensor cores; the f32 CUDA-core bound is printed beside it
+        fwd_bytes, fwd_ops = 4 * ((r + c) * d + 4 * r), 2 * r * c * d
+        bwd_bytes, bwd_ops = 4 * (2 * (r + c) * d + 2 * r), 6 * r * c * d
         res["fwd"] = dict(
             ms=cuda_ms(lambda: N.nce_forward(rows, cols, pos, targets)),
             plain_ms=cuda_ms(lambda: N.nce_forward_plain(rows, cols, pos,
                                                          targets)),
             library_ms=cuda_ms(library),
-            bound=bound_ms(4 * ((r + c) * d + 4 * r), 2 * r * c * d))
+            bound=bound_ms(fwd_bytes, 3 * fwd_ops, TF32_FLOPS))
         res["bwd"] = dict(
             ms=cuda_ms(lambda: N.nce_backward(rows, cols, lse_p, gl)),
             plain_ms=cuda_ms(lambda: N.nce_backward_plain(rows, cols, lse_p,
                                                           gl)),
             library_ms=None,
-            bound=bound_ms(4 * (2 * (r + c) * d + 2 * r), 6 * r * c * d))
+            bound=bound_ms(bwd_bytes, 3 * bwd_ops, TF32_FLOPS))
         log(f"[kernels] NCE R={r} C={c} D={d}: fwd {res['fwd']['ms']:.3f} ms "
             f"(plain {res['fwd']['plain_ms']:.3f}, matmul+logsumexp "
             f"{res['fwd']['library_ms']:.3f}, bound "
-            f"{res['fwd']['bound'][0]:.3f}); bwd {res['bwd']['ms']:.3f} ms "
-            f"(plain {res['bwd']['plain_ms']:.3f}, bound "
-            f"{res['bwd']['bound'][0]:.3f})")
+            f"{res['fwd']['bound'][0]:.3f} 3xTF32, "
+            f"{bound_ms(fwd_bytes, fwd_ops)[0]:.3f} f32); bwd "
+            f"{res['bwd']['ms']:.3f} ms (plain {res['bwd']['plain_ms']:.3f}, "
+            f"bound {res['bwd']['bound'][0]:.3f} 3xTF32, "
+            f"{bound_ms(bwd_bytes, bwd_ops)[0]:.3f} f32)")
     return res
 
 
@@ -439,6 +492,8 @@ def phase_kernels() -> dict:
         check_gru(5, 2156, 256, timed=False)           # ragged: 44 clips at 7²
         nce = check_nce(3072, 3072, 256, 0, timed=True)  # flagship
         check_nce(6144, 6144, 256, 0, timed=True)      # batch 128
+        check_nce(1536, 1536, 1024, 0, timed=True)     # R50's D
+        check_nce(640, 640, 200, 3, timed=False)       # D % 32 != 0
         check_nce(1000, 1500, 256, 37, timed=False)    # ragged
         pool = check_pool((1280, 64, 64, 64), bf16, False, timed=True)  # LC
         for dt in (bf16, f32):                         # pretrain
@@ -574,7 +629,32 @@ def phase_step(profile: str | None) -> dict:
     log(f"[step] top1 {top1}")
     expect(all(math.isfinite(v) for v in losses), f"non-finite loss {losses}")
     _profile(lambda: step(x, gen), profile, "pretrain R18-128 B=64 bf16")
+    _compare_nce_paths(cfg, tcfg, model, step, x, gen)
     return {"launches": launches, "clips_per_s": n_steps * batch / dt}
+
+
+def _compare_nce_paths(cfg, tcfg, model, fused_step, x, gen) -> None:
+    """The flagship step with the materialised score (nce_impl="xla")
+    against the fused kernels, in turns (xla, fused, fused, xla; 5 steps
+    each), for the card's nce_impl="auto" rule."""
+    import torch
+    from dpc_tpu_torch.train import optim, pretrain_step
+
+    xla_step = pretrain_step.make_pretrain_step(
+        cfg, dataclasses.replace(tcfg, nce_impl="xla"), model,
+        optim.pretrain_optimizer(model, tcfg.lr, tcfg.wd))
+    xla_step(x, gen)
+    rates = {"xla": [], "fused": []}
+    for name in ("xla", "fused", "fused", "xla"):
+        fn = xla_step if name == "xla" else fused_step
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            fn(x, gen)
+        torch.cuda.synchronize()
+        rates[name].append(5 * x.shape[0] / (time.perf_counter() - t0))
+    log(f"[step] NCE path in turns: fused {rates['fused']} clips/s, xla "
+        f"(materialised score) {rates['xla']} clips/s")
 
 
 # ---------------------------------------------------------------------------

@@ -57,7 +57,7 @@ def _nvcc() -> str:
                        "are built on first use and need the CUDA toolkit")
 
 
-def _lib_path(name: str) -> Path:
+def lib_path(name: str) -> Path:
     h = hashlib.sha256()
     for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(src.read_bytes())
@@ -66,7 +66,7 @@ def _lib_path(name: str) -> Path:
 
 
 def _start_build(name: str) -> tuple[subprocess.Popen, Path, Path] | None:
-    out = _lib_path(name)
+    out = lib_path(name)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -100,19 +100,23 @@ def build(names=SOURCES) -> dict[str, float]:
 
 
 def build_log(name: str) -> str:
-    p = _lib_path(name).with_suffix(".log")
+    p = lib_path(name).with_suffix(".log")
     return p.read_text() if p.exists() else ""
 
 
 _SIGS = {
     "convgru": {"convgru_fwd": 10 * ["p"] + 4 * ["i"] + ["p"],
                 "convgru_bwd": 23 * ["p"] + 4 * ["i"] + ["p"]},
-    "nce": {"nce_fwd": 6 * ["p"] + 3 * ["i"] + ["p"],
-            "nce_bwd": 6 * ["p"] + 3 * ["i"] + ["p"]},
+    "nce": {"nce_fwd": 7 * ["p"] + ["l"] + 3 * ["i"] + ["p"],
+            "nce_bwd": 7 * ["p"] + ["l"] + 3 * ["i"] + ["p"],
+            "nce_fwd_scratch_floats": 3 * ["i"],
+            "nce_bwd_scratch_floats": 3 * ["i"]},
     "maxpool": {fn: 3 * ["p"] + ["l"] + 4 * ["i"] + ["p"]
                 for fn in ("maxpool_relu_fwd", "maxpool_relu_bwd",
                            "maxpool_bwd_eq")},
 }
+# entry points that return something other than a CUDA error code
+_RESTYPES = {"nce_fwd_scratch_floats": "l", "nce_bwd_scratch_floats": "l"}
 
 
 def library(name: str) -> ctypes.CDLL:
@@ -121,13 +125,13 @@ def library(name: str) -> ctypes.CDLL:
         lib = _LIBS.get(name)
         if lib is None:
             build((name,))
-            lib = ctypes.CDLL(str(_lib_path(name)))
+            lib = ctypes.CDLL(str(lib_path(name)))
             kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int,
                      "l": ctypes.c_longlong}
             for fn, sig in _SIGS[name].items():
                 f = getattr(lib, fn)
                 f.argtypes = [kinds[s] for s in sig]
-                f.restype = ctypes.c_int
+                f.restype = kinds[_RESTYPES.get(fn, "i")]
             _LIBS[name] = lib
         return lib
 
@@ -143,6 +147,12 @@ def launch(lib_name: str, fn: str, *args) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA kernel {fn} failed to launch: error {err}")
     LAUNCHES[fn] += 1
+
+
+def query(lib_name: str, fn: str, *args) -> int:
+    """Call host-side function ``fn`` of library ``lib_name`` (a size or a
+    plan, no kernel launch, not counted)."""
+    return getattr(library(lib_name), fn)(*args)
 
 
 def check_cuda_f32(*tensors) -> None:

@@ -3,7 +3,10 @@
 Port of ``dpc_tpu/ops/nce_pallas.py``.  ``nce_forward`` runs K-NCE-F
 (``csrc/nce.cu``) on CUDA tensors and ``nce_forward_plain`` on CPU tensors;
 ``nce_backward`` likewise runs K-NCE-B or ``nce_backward_plain``.  A CUDA
-tensor launches the kernel or raises; nothing falls back.
+tensor launches the kernel or raises; nothing falls back.  The kernels run
+their products on the tensor cores as 3xTF32 (f32 split into two TF32
+terms, three products), which holds the f32 contract; each entry point
+splits its operands into scratch that the wrapper allocates.
 
 loss_i = logsumexp_j(s_ij) − s_i,pos with s = rows·colsᵀ, and top-k from
 the rank ``#{j ≠ target_i : s_ij > pos_i}``.  The kernels never write the
@@ -44,25 +47,46 @@ def nce_forward(rows, cols, pos, targets):
     _build.check_cuda_f32(rows, cols, pos)
     if targets.dtype != torch.int32 or targets.device != rows.device:
         raise TypeError("targets must be int32 on the rows' device")
-    r, d = rows.shape
+    r, c, d = _check_shapes(rows, cols, pos, targets)
     lse = torch.empty(r, device=rows.device, dtype=torch.float32)
     rank = torch.empty_like(lse)
+    scratch = _scratch("nce_fwd_scratch_floats", r, c, d, rows.device)
     _build.launch("nce", "nce_fwd", rows, cols, pos, targets.contiguous(),
-                  lse, rank, r, cols.shape[0], d)
+                  lse, rank, scratch, scratch.numel(), r, c, d)
     return lse, rank
 
 
 def nce_backward(rows, cols, lse, g):
-    """K-NCE-B: (drows, dcols) of Σ_i g_i·lse_i, in two deterministic
-    sweeps of one launch."""
+    """K-NCE-B: (drows, dcols) of Σ_i g_i·lse_i, both sweeps in one kernel
+    launch, its partial sums reduced in a fixed order (no atomics)."""
     if rows.device.type == "cpu":
         return nce_backward_plain(rows, cols, lse, g)
     g = g.contiguous()
     _build.check_cuda_f32(rows, cols, lse, g)
+    r, c, d = _check_shapes(rows, cols, lse, g)
     drows, dcols = torch.empty_like(rows), torch.empty_like(cols)
+    scratch = _scratch("nce_bwd_scratch_floats", r, c, d, rows.device)
     _build.launch("nce", "nce_bwd", rows, cols, lse, g, drows, dcols,
-                  rows.shape[0], cols.shape[0], rows.shape[1])
+                  scratch, scratch.numel(), r, c, d)
     return drows, dcols
+
+
+def _check_shapes(rows, cols, *per_row):
+    """rows ``[R, D]``, cols ``[C, D]`` and vectors of length R → R, C, D."""
+    if rows.dim() != 2 or cols.dim() != 2 or rows.shape[1] != cols.shape[1]:
+        raise ValueError(f"rows {tuple(rows.shape)} and cols "
+                         f"{tuple(cols.shape)} must be [R, D] and [C, D]")
+    r = rows.shape[0]
+    if any(v.shape != (r,) for v in per_row):
+        raise ValueError(f"per-row inputs must be [{r}]: "
+                         f"{[tuple(v.shape) for v in per_row]}")
+    return r, cols.shape[0], rows.shape[1]
+
+
+def _scratch(size_fn, r, c, d, device):
+    """The f32 scratch (operand planes, partials) an entry point needs."""
+    n = _build.query("nce", size_fn, r, c, d)
+    return torch.empty(n, device=device, dtype=torch.float32)
 
 
 class _LseRank(torch.autograd.Function):
