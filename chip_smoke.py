@@ -7,7 +7,7 @@ step and the LC finetune, eval and dense-test path at their full width.
 Phases, each printing its facts before the next starts:
   1. build    compile csrc/*.cu for sm_90a (one nvcc per source, in
               parallel); count the tensor-core instructions (HGMMA, HMMA)
-              in the SASS of the nce library
+              in the SASS of the nce and convgru libraries
   2. kernels  K-GRU-F/B, K-NCE-F/B and the stem pool's K1/K2/K8 against
               their plain versions on the card, at the pretrain and LC
               shapes, the 6144-row NCE shape, R50's D=1024, a D that is
@@ -19,12 +19,14 @@ Phases, each printing its facts before the next starts:
               B=64, bf16 train step (gru_impl="pallas", nce_impl="fused",
               stem pool "auto"): 2 warm-up and 10 timed steps, with the
               kernels' launch counts read around the timed steps; then
-              the same step with nce_impl="xla" in turns with it
+              the same step with nce_impl="xla", and with gru_impl="scan"
+              (the per-step plain recurrence), in turns with it
   4. lc       the same check for one small f32 LC finetune step; then the
               LC flagship R18-128, 8x5, B=32, bf16, 101 classes: 2 warm-up
               and 10 timed finetune steps with the launch counts read
-              around them, one eval step, and the dense-test forward at
-              window batch 32
+              around them, the same step with gru_impl="scan" in turns
+              with it, one eval step, and the dense-test forward at window
+              batch 32
   5. cli      python -m dpc_tpu_torch.train.pretrain for 2 synthetic steps;
               python -m dpc_tpu_torch.train.evaluate for 1 epoch of 2 steps
               plus val, then --test random on a few synthetic videos
@@ -33,7 +35,10 @@ and a last line {"ok": true, "device": {...}}.  Any failure exits non-zero
 before the last line.  Without a CUDA device it exits 2 and prints no result.
 
 --profile PATH writes torch.profiler tables of two pretrain and two LC
-flagship steps to PATH.
+flagship steps, and the device time of each kernel inside K-GRU-F/B at the
+pretrain and LC shapes, to PATH.  --rates ROOT only times the two flagship steps of
+the dpc_tpu_torch under ROOT and prints one JSON line of clips/s: run it
+for two checkouts in turns (a, b, b, a) in one call to compare commits.
 """
 
 from __future__ import annotations
@@ -56,7 +61,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # NVIDIA H100 SXM data sheet: HBM rate, dense f32 rate on the CUDA cores
-# (the GRU and pool kernels), dense TF32 rate of the tensor cores (the NCE
+# (the pool kernels), dense TF32 rate of the tensor cores (the NCE and GRU
 # kernels, whose f32-accurate products take three TF32 passes).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
@@ -137,7 +142,7 @@ def _cuobjdump() -> str:
             return str(cand)
     raise Failed("cuobjdump not found (neither the CUDA toolkit's bin/ nor "
                  "triton/backends/nvidia/bin/): cannot show that the nce "
-                 "library uses the tensor cores")
+                 "and convgru libraries use the tensor cores")
 
 
 def tensor_core_instructions(name: str) -> dict:
@@ -165,10 +170,11 @@ def phase_build() -> None:
                 log(f"[build] {name}: {line.strip()}")
     for name in _build.SOURCES:
         _build.library(name)
-    tc = tensor_core_instructions("nce")
-    log(f"[build] nce SASS tensor-core instructions: {tc}")
-    expect(tc["HGMMA"] + tc["HMMA"] > 0,
-           "the nce library holds no tensor-core instruction")
+    for name in ("nce", "convgru"):
+        tc = tensor_core_instructions(name)
+        log(f"[build] {name} SASS tensor-core instructions: {tc}")
+        expect(tc["HGMMA"] + tc["HMMA"] > 0,
+               f"the {name} library holds no tensor-core instruction")
 
 
 # ---------------------------------------------------------------------------
@@ -213,7 +219,38 @@ def _gru_library_fwd(x_seq, h0, weights, masks):
     return torch.stack(outs)
 
 
-def check_gru(t, r, d, timed: bool) -> dict:
+def _profile_calls(fn, path: str, label: str) -> None:
+    """torch.profiler over two calls of ``fn``: device time by kernel name,
+    logged and appended to ``path``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as prof
+
+    fn()
+    torch.cuda.synchronize()
+    with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+    events = sorted((e for e in p.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and e.self_device_time_total > 0),
+                    key=lambda e: -e.self_device_time_total)
+    def short(key: str) -> str:
+        key = key.replace("(anonymous namespace)::", "")
+        return key.removeprefix("void ").split("(")[0].split("<")[0][:40]
+
+    rows = [f"{short(e.key)} x{e.count // 2} "
+            f"{e.self_device_time_total / 2e3:.4f} ms" for e in events]
+    busy = sum(e.self_device_time_total for e in events) / 2e3
+    log(f"[profile] {label}, per call: device {busy:.4f} ms; "
+        + "; ".join(rows))
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "a") as f:
+        f.write(f"{label}, per call: device {busy:.4f} ms\n"
+                + "\n".join(rows) + "\n")
+
+
+def check_gru(t, r, d, timed: bool, profile: str | None = None) -> dict:
     from dpc_tpu_torch.ops import convgru_cuda as G
 
     x, h0, w, m, gout = _gru_case(t, r, d, seed=r)
@@ -234,26 +271,39 @@ def check_gru(t, r, d, timed: bool) -> dict:
            f"K-GRU-B disagrees at R={r}: {errs}")
     res = {"fwd_err": abs_f, "bwd_err": abs_b}
     if timed:
+        # bound: the FLOPs as three TF32 passes on the tensor cores (the
+        # backward recomputes the gates: 3 × the forward's); the f32
+        # CUDA-core bound is printed beside it
         wbytes = sum(p.numel() for p in w) * 4
-        fwd_ops = 2 * t * r * 3 * d * (2 * d)
+        fwd_bytes, fwd_ops = 4 * (3 * t * r * d + r * d) + wbytes, \
+            2 * t * r * 3 * d * (2 * d)
+        bwd_bytes, bwd_ops = 4 * (5 * t * r * d + 2 * r * d) + 2 * wbytes, \
+            3 * fwd_ops
         res["fwd"] = dict(
             ms=cuda_ms(lambda: G.convgru_forward(x, h0, w, m)),
             plain_ms=cuda_ms(lambda: G.convgru_forward_plain(x, h0, w, m)),
             library_ms=cuda_ms(lambda: _gru_library_fwd(x, h0, w, m)),
-            bound=bound_ms(4 * (3 * t * r * d + r * d) + wbytes, fwd_ops))
+            bound=bound_ms(fwd_bytes, 3 * fwd_ops, TF32_FLOPS))
         res["bwd"] = dict(
             ms=cuda_ms(lambda: G.convgru_backward(x, h0, out_k, w, m, gout)),
             plain_ms=cuda_ms(lambda: G.convgru_backward_plain(
                 x, h0, out_p, w, m, gout)),
             library_ms=None,
-            bound=bound_ms(4 * (5 * t * r * d + 2 * r * d) + 2 * wbytes,
-                           3 * fwd_ops))
+            bound=bound_ms(bwd_bytes, 3 * bwd_ops, TF32_FLOPS))
         log(f"[kernels] GRU T={t} R={r} D={d}: fwd {res['fwd']['ms']:.3f} ms "
             f"(plain {res['fwd']['plain_ms']:.3f}, cuBLAS loop "
             f"{res['fwd']['library_ms']:.3f}, bound "
-            f"{res['fwd']['bound'][0]:.3f}); bwd {res['bwd']['ms']:.3f} ms "
-            f"(plain {res['bwd']['plain_ms']:.3f}, bound "
-            f"{res['bwd']['bound'][0]:.3f})")
+            f"{res['fwd']['bound'][0]:.3f} 3xTF32, "
+            f"{bound_ms(fwd_bytes, fwd_ops)[0]:.3f} f32); bwd "
+            f"{res['bwd']['ms']:.3f} ms (plain {res['bwd']['plain_ms']:.3f}, "
+            f"bound {res['bwd']['bound'][0]:.3f} 3xTF32, "
+            f"{bound_ms(bwd_bytes, bwd_ops)[0]:.3f} f32)")
+        if profile:
+            _profile_calls(lambda: G.convgru_forward(x, h0, w, m), profile,
+                           f"K-GRU-F T={t} R={r} D={d}")
+            _profile_calls(
+                lambda: G.convgru_backward(x, h0, out_k, w, m, gout),
+                profile, f"K-GRU-B T={t} R={r} D={d}")
     return res
 
 
@@ -480,16 +530,18 @@ def probe_stem_layout() -> None:
            "the stem activation is not channels_last_3d")
 
 
-def phase_kernels() -> dict:
+def phase_kernels(profile: str | None = None) -> dict:
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     bf16, f32 = torch.bfloat16, torch.float32
     try:
-        check_gru(5, 1024, 256, timed=True)            # pretrain flagship
-        gru_lc = check_gru(8, 512, 256, timed=True)    # LC flagship
+        check_gru(5, 1024, 256, timed=True, profile=profile)  # pretrain
+        gru_lc = check_gru(8, 512, 256, timed=True, profile=profile)  # LC
         check_gru(5, 2156, 256, timed=False)           # ragged: 44 clips at 7²
+        check_gru(5, 256, 1024, timed=True)            # R50's D
+        check_gru(5, 300, 200, timed=False)            # D % 32 != 0, ragged R
         nce = check_nce(3072, 3072, 256, 0, timed=True)  # flagship
         check_nce(6144, 6144, 256, 0, timed=True)      # batch 128
         check_nce(1536, 1536, 1024, 0, timed=True)     # R50's D
@@ -590,24 +642,32 @@ def _read_launches(what: str, n_steps: int, kernels) -> dict:
     return launches
 
 
-def phase_step(profile: str | None) -> dict:
+def _pretrain_flagship():
+    """The pretrain flagship's config, model, step and device batch."""
     import torch
     from dpc_tpu_torch.core.config import DPCConfig, TrainConfig
     from dpc_tpu_torch.models import dpc
-    from dpc_tpu_torch.ops import _build
     from dpc_tpu_torch.train import optim, pretrain_step
 
-    _small_step_check()
     dev = torch.device("cuda")
     cfg = DPCConfig(compute_dtype="bfloat16", gru_impl="pallas")
-    batch = 64
-    tcfg = TrainConfig(batch_size=batch, lr=1e-3, wd=1e-5, nce_impl="fused")
+    tcfg = TrainConfig(batch_size=64, lr=1e-3, wd=1e-5, nce_impl="fused")
     model = dpc.build_dpc(cfg, dev, seed=0)
     step = pretrain_step.make_pretrain_step(
         cfg, tcfg, model, optim.pretrain_optimizer(model, tcfg.lr, tcfg.wd))
     gen = torch.Generator(device=dev).manual_seed(1)
-    x = torch.randn(batch, cfg.num_seq, cfg.seq_len, cfg.img_dim,
+    x = torch.randn(tcfg.batch_size, cfg.num_seq, cfg.seq_len, cfg.img_dim,
                     cfg.img_dim, 3, device=dev, generator=gen)
+    return cfg, tcfg, model, step, x, gen
+
+
+def phase_step(profile: str | None) -> dict:
+    import torch
+    from dpc_tpu_torch.ops import _build
+
+    _small_step_check()
+    cfg, tcfg, model, step, x, gen = _pretrain_flagship()
+    batch = tcfg.batch_size
     torch.cuda.reset_peak_memory_stats()
     for _ in range(2):
         step(x, gen)
@@ -629,32 +689,49 @@ def phase_step(profile: str | None) -> dict:
     log(f"[step] top1 {top1}")
     expect(all(math.isfinite(v) for v in losses), f"non-finite loss {losses}")
     _profile(lambda: step(x, gen), profile, "pretrain R18-128 B=64 bf16")
-    _compare_nce_paths(cfg, tcfg, model, step, x, gen)
+    _compare_paths(cfg, tcfg, model, step, x, gen)
     return {"launches": launches, "clips_per_s": n_steps * batch / dt}
 
 
-def _compare_nce_paths(cfg, tcfg, model, fused_step, x, gen) -> None:
-    """The flagship step with the materialised score (nce_impl="xla")
-    against the fused kernels, in turns (xla, fused, fused, xla; 5 steps
-    each), for the card's nce_impl="auto" rule."""
+def _in_turns(plain, kernel, batch: int, n: int = 5) -> dict:
+    """clips/s of two step functions in turns (plain, kernel, kernel,
+    plain; n steps each), after two warm-up steps of each."""
     import torch
-    from dpc_tpu_torch.train import optim, pretrain_step
 
-    xla_step = pretrain_step.make_pretrain_step(
-        cfg, dataclasses.replace(tcfg, nce_impl="xla"), model,
-        optim.pretrain_optimizer(model, tcfg.lr, tcfg.wd))
-    xla_step(x, gen)
-    rates = {"xla": [], "fused": []}
-    for name in ("xla", "fused", "fused", "xla"):
-        fn = xla_step if name == "xla" else fused_step
+    for fn in (plain, plain, kernel, kernel):
+        fn()
+    rates = {"plain": [], "kernel": []}
+    for name in ("plain", "kernel", "kernel", "plain"):
+        fn = plain if name == "plain" else kernel
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(5):
-            fn(x, gen)
+        for _ in range(n):
+            fn()
         torch.cuda.synchronize()
-        rates[name].append(5 * x.shape[0] / (time.perf_counter() - t0))
-    log(f"[step] NCE path in turns: fused {rates['fused']} clips/s, xla "
-        f"(materialised score) {rates['xla']} clips/s")
+        rates[name].append(n * batch / (time.perf_counter() - t0))
+    return rates
+
+
+def _compare_paths(cfg, tcfg, model, fused_step, x, gen) -> None:
+    """The flagship step with the materialised score (nce_impl="xla"), and
+    with the per-step plain recurrence (gru_impl="scan"), each against the
+    kernels in turns: for the card's nce_impl="auto" rule and gru_impl
+    default."""
+    from dpc_tpu_torch.train import optim, pretrain_step
+
+    def other(c, t):
+        return pretrain_step.make_pretrain_step(
+            c, t, model, optim.pretrain_optimizer(model, tcfg.lr, tcfg.wd))
+
+    kernel = lambda: fused_step(x, gen)
+    xla_step = other(cfg, dataclasses.replace(tcfg, nce_impl="xla"))
+    rates = _in_turns(lambda: xla_step(x, gen), kernel, x.shape[0])
+    log(f"[step] NCE path in turns: fused {rates['kernel']} clips/s, xla "
+        f"(materialised score) {rates['plain']} clips/s")
+    scan_step = other(dataclasses.replace(cfg, gru_impl="scan"), tcfg)
+    rates = _in_turns(lambda: scan_step(x, gen), kernel, x.shape[0])
+    log(f"[step] GRU path in turns: pallas (kernels) {rates['kernel']} "
+        f"clips/s, scan (plain recurrence) {rates['plain']} clips/s")
 
 
 # ---------------------------------------------------------------------------
@@ -709,24 +786,34 @@ def _small_lc_check() -> None:
         torch.backends.cudnn.allow_tf32 = True
 
 
-def phase_lc(profile: str | None) -> dict:
+def _lc_flagship():
+    """The LC flagship's configs, model, step and device batch."""
     import torch
     from dpc_tpu_torch.core.config import DPCConfig, EvalConfig
+
+    dev = torch.device("cuda")
+    cfg = DPCConfig(compute_dtype="bfloat16", gru_impl="pallas",
+                    gru_dropout=0.1)
+    ecfg = EvalConfig(num_classes=101, dropout=0.5, train_what="ft",
+                      backbone_lr_scale=0.1, batch_size=32)
+    model, step = _lc_parts(cfg, ecfg)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn(ecfg.batch_size, cfg.num_seq, cfg.seq_len, cfg.img_dim,
+                    cfg.img_dim, 3, device=dev, generator=gen)
+    y = torch.randint(0, ecfg.num_classes, (ecfg.batch_size,), device=dev,
+                      generator=gen)
+    return cfg, ecfg, model, step, x, y, gen
+
+
+def phase_lc(profile: str | None) -> dict:
+    import torch
     from dpc_tpu_torch.ops import _build
-    from dpc_tpu_torch.train import finetune_step
+    from dpc_tpu_torch.train import finetune_step, optim
 
     _small_lc_check()
     dev = torch.device("cuda")
-    batch, classes = 32, 101
-    cfg = DPCConfig(compute_dtype="bfloat16", gru_impl="pallas",
-                    gru_dropout=0.1)
-    ecfg = EvalConfig(num_classes=classes, dropout=0.5, train_what="ft",
-                      backbone_lr_scale=0.1, batch_size=batch)
-    model, step = _lc_parts(cfg, ecfg)
-    gen = torch.Generator(device=dev).manual_seed(2)
-    x = torch.randn(batch, cfg.num_seq, cfg.seq_len, cfg.img_dim,
-                    cfg.img_dim, 3, device=dev, generator=gen)
-    y = torch.randint(0, classes, (batch,), device=dev, generator=gen)
+    cfg, ecfg, model, step, x, y, gen = _lc_flagship()
+    batch, classes = ecfg.batch_size, ecfg.num_classes
     torch.cuda.reset_peak_memory_stats()
     for _ in range(2):
         step(x, y, gen)
@@ -749,6 +836,14 @@ def phase_lc(profile: str | None) -> dict:
     expect(all(math.isfinite(v) for v in losses), f"non-finite loss {losses}")
     _profile(lambda: step(x, y, gen), profile,
              "LC finetune R18-128 8x5 B=32 bf16")
+    opt = optim.finetune_optimizer(model, ecfg.lr, ecfg.wd, ecfg.train_what,
+                                   ecfg.backbone_lr_scale)
+    scan_step = finetune_step.make_finetune_step(
+        dataclasses.replace(cfg, gru_impl="scan"), ecfg, model, opt)
+    rates = _in_turns(lambda: scan_step(x, y, gen), lambda: step(x, y, gen),
+                      batch)
+    log(f"[lc] GRU path in turns: pallas (kernels) {rates['kernel']} clips/s,"
+        f" scan (plain recurrence) {rates['plain']} clips/s")
 
     val = finetune_step.make_finetune_eval_step(cfg, ecfg, model)(x, y)
     val = {k: float(v) for k, v in val.items()}
@@ -863,10 +958,41 @@ def kernels_line(k: dict, launches: dict) -> dict:
     ]}
 
 
+def rates_only(n_steps: int = 20) -> dict:
+    """clips/s of the pretrain and LC flagship steps (2 warm-up and
+    n_steps timed steps each), nothing checked: for comparing the
+    dpc_tpu_torch of two commits in turns, one process each."""
+    import torch
+    from dpc_tpu_torch.ops import _build
+
+    _build.build()
+    rates = {}
+    _, tcfg, _, step, x, gen = _pretrain_flagship()
+    _, ecfg, _, lc_step, lx, ly, lgen = _lc_flagship()
+    for name, fn, batch in (
+            ("pretrain", lambda: step(x, gen), tcfg.batch_size),
+            ("lc", lambda: lc_step(lx, ly, lgen), ecfg.batch_size)):
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            fn()
+        torch.cuda.synchronize()
+        rates[name] = n_steps * batch / (time.perf_counter() - t0)
+    return rates
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default="")
+    ap.add_argument("--rates", metavar="ROOT", default="",
+                    help="only time the pretrain and LC flagship steps of "
+                         "the dpc_tpu_torch under ROOT and print one JSON "
+                         "line (no checks, no ok line)")
     args = ap.parse_args(argv)
+    if args.rates:
+        sys.path.insert(0, str(Path(args.rates).resolve()))
     import torch
 
     if not torch.cuda.is_available():
@@ -880,10 +1006,13 @@ def main(argv=None) -> int:
         return 3
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+    if args.rates:
+        print(json.dumps({"root": args.rates, **rates_only()}))
+        return 0
     t0 = time.perf_counter()
     try:
         phase_build()
-        k = phase_kernels()
+        k = phase_kernels(args.profile or None)
         s = phase_step(args.profile or None)
         lc = phase_lc(args.profile or None)
         phase_cli()

@@ -56,17 +56,11 @@
 //    dimension is split across blocks to fill the SMs, each split writing
 //    its own partial sum; a reduce kernel adds them in split order.  No
 //    atomics: the result does not depend on scheduling.
-#include <cuda.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "tf32_wgmma.cuh"
 
 namespace {
 
-constexpr int BM = 64;                       // rows of a score tile
 constexpr int BN = 64;                       // columns of a score tile
-constexpr int BK = 32;                       // f32 per 128-byte swizzle row
-constexpr int BOX_BYTES = BM * BK * 4;       // one TMA box: 64 x 32 f32
 constexpr int STAGE_BYTES = 4 * BOX_BYTES;   // four boxes a stage
 constexpr int NST = 3;                       // stages in the ring
 constexpr int NT = 128;                      // one warpgroup
@@ -74,121 +68,6 @@ constexpr int DS = 256;                      // D a backward block accumulates
 constexpr int SMEM_BYTES = NST * STAGE_BYTES + 1024;  // + 1024-byte alignment
 
 // ---------------------------------------------------------------- device
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ float tf32_rna(float x) {
-  uint32_t u;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(u) : "f"(x));
-  return __uint_as_float(u);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One 64-row x 32-column box of a 2-D f32 plane at (x = column, y = row).
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int x, int y,
-                                         uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3}], [%4];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(bar)
-      : "memory");
-}
-
-// wgmma descriptor of a K-major tile with 128-byte swizzle: rows of 128
-// bytes, 8-row groups 1024 bytes apart.  The tile starts 1024-aligned; a
-// k-step of 8 f32 (32 bytes) adds 2 to the address field.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) |
-         (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// Keeps the compiler from moving accumulator reads or writes across the
-// asynchronous wgmma boundaries.
-__device__ __forceinline__ void reg_fence(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define ACC32(d)                                                                              \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),          \
-      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
-      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),           \
-      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),           \
-      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-#define D32                                                                                  \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
-  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-
-// d[64 x 64] = A[64 x 8] · B[64 x 8]ᵀ + (accumulate ? d : 0), both from
-// shared memory.
-__device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " D32 ", %32, %33, p, 1, 1;\n}\n"
-      : ACC32(d)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d[64 x 64] += A[64 x 8] · B[64 x 8]ᵀ, A from registers: warp w of the
-// warpgroup holds rows 16w..16w+15, and lane (g = lane/4, t = lane%4) holds
-// a0 = (g, t), a1 = (g+8, t), a2 = (g, t+4), a3 = (g+8, t+4).
-__device__ __forceinline__ void mma_rs(float (&d)[32], float a0, float a1, float a2, float a3,
-                                       uint64_t db) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " D32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-      : ACC32(d)
-      : "r"(__float_as_uint(a0)), "r"(__float_as_uint(a1)), "r"(__float_as_uint(a2)),
-        "r"(__float_as_uint(a3)), "l"(db), "r"(1));
-}
-
-// acc = hi·hi + hi·lo + lo·hi of one 32-wide K chunk (own tile hi/lo at
-// a_hi, a_lo, other tile at b_hi, b_lo: shared addresses), started fresh:
-// the tensor cores truncate as they accumulate, so the caller adds the
-// chunks in f32 and no chain of TF32 accumulations is longer than 12.
-__device__ __forceinline__ void score_chunk(float (&acc)[32], uint32_t a_hi, uint32_t a_lo,
-                                            uint32_t b_hi, uint32_t b_lo) {
-  const uint64_t dah = desc_sw128(a_hi), dal = desc_sw128(a_lo);
-  const uint64_t dbh = desc_sw128(b_hi), dbl = desc_sw128(b_lo);
-#pragma unroll
-  for (int j = 0; j < BK / 8; ++j) {
-    mma_ss(acc, dah + 2 * j, dbh + 2 * j, j > 0);
-    mma_ss(acc, dah + 2 * j, dbl + 2 * j, 1);
-    mma_ss(acc, dal + 2 * j, dbh + 2 * j, 1);
-  }
-}
 
 // The score tile's chunk: acc holds it, sum gathers the chunks in f32.
 __device__ __forceinline__ void score_stage(float (&acc)[32], float (&sum)[32], uint32_t st,
@@ -213,63 +92,6 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// Position of column c of a group of 8 in the transposed planes: the A
-// fragment's K position p holds accumulator column sigma(p) = 2p (p < 4)
-// or 2(p − 4) + 1, so column c sits at its inverse.
-__device__ __forceinline__ int sigma8(int p) { return p < 4 ? 2 * p : 2 * (p - 4) + 1; }
-
-// Splits x [n, D] into hi/lo planes [n, ld] and, when hiT is given, the
-// transposed planes [D, ldT] with the columns of each group of 8 permuted
-// (positions n..ldT−1 zero).  Block (32, 8) per 32 x 32 tile.
-__global__ void split_kernel(const float* __restrict__ x, int n, int D, float* __restrict__ hi,
-                             float* __restrict__ lo, int ld, float* __restrict__ hiT,
-                             float* __restrict__ loT, int ldT) {
-  __shared__ float th[32][33], tl[32][33];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int i0 = blockIdx.y * 32, d0 = blockIdx.x * 32;
-  for (int k = ty; k < 32; k += 8) {
-    const int i = i0 + k, d = d0 + tx;
-    const bool in = i < n && d < D;
-    const float v = in ? x[static_cast<size_t>(i) * D + d] : 0.f;
-    const float h = tf32_rna(v), l = tf32_rna(v - h);
-    if (in) {
-      hi[static_cast<size_t>(i) * ld + d] = h;
-      lo[static_cast<size_t>(i) * ld + d] = l;
-    }
-    th[k][tx] = h;
-    tl[k][tx] = l;
-  }
-  if (hiT == nullptr) return;
-  __syncthreads();
-  const int q = i0 + tx, src = (tx & ~7) + sigma8(tx & 7);
-  for (int k = ty; k < 32; k += 8) {
-    const int d = d0 + k;
-    if (d < D && q < ldT) {
-      hiT[static_cast<size_t>(d) * ldT + q] = th[src][k];
-      loT[static_cast<size_t>(d) * ldT + q] = tl[src][k];
-    }
-  }
-}
-
-// Ring bookkeeping shared by both main kernels.
-struct Ring {
-  uint32_t base;      // shared address of stage 0, 1024-aligned
-  uint64_t* full;     // one mbarrier per stage
-
-  __device__ uint32_t stage(int q) const { return base + (q % NST) * STAGE_BYTES; }
-  __device__ uint32_t bar(int q) const { return smem_u32(&full[q % NST]); }
-  __device__ void wait(int q) const { mbar_wait(bar(q), (q / NST) & 1); }
-};
-
-__device__ __forceinline__ Ring make_ring(uint8_t* dyn, uint64_t* full) {
-  Ring r{(smem_u32(dyn) + 1023u) & ~1023u, full};
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < NST; ++s) mbar_init(smem_u32(&full[s]));
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
-  return r;
-}
 
 // Column tiles [tb, te) of split s out of `splits` over n columns.
 __device__ __forceinline__ void split_range(int n, int s, int splits, int& tb, int& te) {
@@ -289,7 +111,7 @@ __global__ void __launch_bounds__(NT, 2)
                    int D, int splits) {
   __shared__ uint64_t full[NST];
   extern __shared__ uint8_t dyn[];
-  const Ring ring = make_ring(dyn, full);
+  const auto ring = make_ring<NST, STAGE_BYTES>(dyn, full);
   const int tid = threadIdx.x, w = tid / 32, gq = (tid % 32) / 4, t = tid % 4;
   const int a0 = blockIdx.x * BM, split = blockIdx.y;
   int tb, te;
@@ -406,7 +228,7 @@ __global__ void __launch_bounds__(NT, 2)
                    int splits_c, int nds) {
   __shared__ uint64_t full[NST];
   extern __shared__ uint8_t dyn[];
-  const Ring ring = make_ring(dyn, full);
+  const auto ring = make_ring<NST, STAGE_BYTES>(dyn, full);
   const int tid = threadIdx.x, w = tid / 32, gq = (tid % 32) / 4, t = tid % 4;
 
   const int tiles_r = (R + BM - 1) / BM, n_a = tiles_r * splits_r * nds;
@@ -556,60 +378,7 @@ __global__ void __launch_bounds__(NT, 2)
   }
 }
 
-// out[i] = Σ_k part[k][i], k in split order.
-__global__ void reduce_splits(const float* __restrict__ part, size_t n, int splits,
-                              float* __restrict__ out) {
-  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < n;
-       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    float v = 0.f;
-    for (int k = 0; k < splits; ++k) v += part[k * n + i];
-    out[i] = v;
-  }
-}
-
 // ------------------------------------------------------------------ host
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled lives in libcuda; it is fetched through the
-// runtime's entry-point query so that the library needs no link against it.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult res;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res) ==
-            cudaSuccess &&
-        res == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// Map of a row-major f32 plane [outer, inner] with leading dimension ld,
-// loaded in boxes of 64 rows x 32 columns with 128-byte swizzle; reads
-// past inner or outer return zeros.
-bool make_map(CUtensorMap* map, const float* base, int inner, int outer, int ld) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(outer)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 4};
-  const cuuint32_t box[2] = {BK, BM}, elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(base), dims, strides,
-            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-int sm_count() {
-  int dev = 0, n = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  return n > 0 ? n : 1;
-}
 
 // Splits of the other dimension (n_other columns) when each split has
 // `own_blocks` blocks: the fewest that minimise waves × (column tiles per
@@ -633,8 +402,6 @@ int pick_splits(int own_blocks, int n_other) {
   return best;
 }
 
-inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
-inline size_t align64(size_t x) { return (x + 63) / 64 * 64; }  // 256 bytes
 
 // Scratch layout, in floats from the start of the buffer.
 struct Plan {
@@ -681,7 +448,7 @@ Plan plan(int R, int C, int D, bool backward) {
 int split_into(const float* x, int n, int D, float* hi, float* lo, int ld, float* hiT,
                float* loT, int ldT, cudaStream_t s) {
   const dim3 grid((D + 31) / 32, (n + 31) / 32), block(32, 8);
-  split_kernel<<<grid, block, 0, s>>>(x, n, D, hi, lo, ld, hiT, loT, ldT);
+  split_kernel<true><<<grid, block, 0, s>>>(x, n, D, hi, lo, ld, hiT, loT, ldT);
   return static_cast<int>(cudaGetLastError());
 }
 

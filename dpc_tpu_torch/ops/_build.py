@@ -105,8 +105,10 @@ def build_log(name: str) -> str:
 
 
 _SIGS = {
-    "convgru": {"convgru_fwd": 10 * ["p"] + 4 * ["i"] + ["p"],
-                "convgru_bwd": 23 * ["p"] + 4 * ["i"] + ["p"]},
+    "convgru": {"convgru_fwd": 11 * ["p"] + ["l"] + 4 * ["i"] + ["p"],
+                "convgru_bwd": 17 * ["p"] + ["l"] + 4 * ["i"] + ["p"],
+                "convgru_fwd_scratch_floats": 4 * ["i"],
+                "convgru_bwd_scratch_floats": 4 * ["i"]},
     "nce": {"nce_fwd": 7 * ["p"] + ["l"] + 3 * ["i"] + ["p"],
             "nce_bwd": 7 * ["p"] + ["l"] + 3 * ["i"] + ["p"],
             "nce_fwd_scratch_floats": 3 * ["i"],
@@ -116,7 +118,9 @@ _SIGS = {
                            "maxpool_bwd_eq")},
 }
 # entry points that return something other than a CUDA error code
-_RESTYPES = {"nce_fwd_scratch_floats": "l", "nce_bwd_scratch_floats": "l"}
+_RESTYPES = {fn: "l" for fn in ("nce_fwd_scratch_floats", "nce_bwd_scratch_floats",
+                                   "convgru_fwd_scratch_floats",
+                                   "convgru_bwd_scratch_floats")}
 
 
 def library(name: str) -> ctypes.CDLL:
@@ -149,10 +153,11 @@ def launch(lib_name: str, fn: str, *args) -> None:
     LAUNCHES[fn] += 1
 
 
-def query(lib_name: str, fn: str, *args) -> int:
-    """Call host-side function ``fn`` of library ``lib_name`` (a size or a
-    plan, no kernel launch, not counted)."""
-    return getattr(library(lib_name), fn)(*args)
+def scratch(lib_name: str, size_fn: str, device, *dims) -> torch.Tensor:
+    """The f32 scratch an entry point of library ``lib_name`` needs, sized
+    by its host-side function ``size_fn`` (no kernel launch, not counted)."""
+    n = getattr(library(lib_name), size_fn)(*dims)
+    return torch.empty(n, device=device, dtype=torch.float32)
 
 
 def check_cuda_f32(*tensors) -> None:

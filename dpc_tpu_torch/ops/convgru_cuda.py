@@ -5,7 +5,11 @@ Port of ``dpc_tpu/ops/convgru_pallas.py``.  ``convgru_forward`` runs
 K-GRU-F (``csrc/convgru.cu``) on CUDA tensors and ``convgru_forward_plain``
 on CPU tensors; ``convgru_backward`` likewise runs K-GRU-B or
 ``convgru_backward_plain``.  There is no fallback between them: a CUDA
-tensor launches the kernel or raises.
+tensor launches the kernel or raises.  The kernels run every product on the
+tensor cores as 3xTF32 (f32 split into two TF32 terms, three products),
+which holds the f32 contract; the products that do not carry the hidden
+state are hoisted out of the recurrence, which runs as one persistent
+kernel.  Each entry point works in scratch that the wrapper allocates.
 
 Sequence layout is time-major ``[T, R, C]`` with R = B·H·W rows; the
 weights are ``pack_weights`` of the JAX op:
@@ -103,8 +107,10 @@ def convgru_forward(x_seq, h0, weights, masks):
     ch = h0.shape[-1]
     _build.check_cuda_f32(x_seq, h0, *weights, masks)
     out = torch.empty((t, r, ch), device=x_seq.device, dtype=torch.float32)
+    scratch = _build.scratch("convgru", "convgru_fwd_scratch_floats",
+                             x_seq.device, t, r, cin, ch)
     _build.launch("convgru", "convgru_fwd", x_seq, h0, *weights, masks, out,
-                  t, r, cin, ch)
+                  scratch, scratch.numel(), t, r, cin, ch)
     return out
 
 
@@ -113,22 +119,21 @@ def convgru_backward(x_seq, h0, out, weights, masks, g_out):
     db_o)``; the weight gradients are sums over all T·R rows."""
     if x_seq.device.type == "cpu":
         return convgru_backward_plain(x_seq, h0, out, weights, masks, g_out)
-    wzr_x, wzr_h, b_zr, wo_x, wo_h, b_o = weights
     t, r, cin = x_seq.shape
     ch = h0.shape[-1]
     g_out = g_out.contiguous()
     _build.check_cuda_f32(x_seq, h0, out, *weights, masks, g_out)
     hin_seq = torch.cat([h0[None], out[:-1]])
-    transposed = [w.t().contiguous() for w in (wzr_x, wzr_h, wo_x, wo_h)]
     new = lambda *shape: torch.empty(shape, device=x_seq.device,
                                      dtype=torch.float32)
     dx, dh0 = new(t, r, cin), new(r, ch)
-    dazr, dao, hr = new(t, r, 2 * ch), new(t, r, ch), new(t, r, ch)
     dwzr_xb, dwzr_h = new(cin + 1, 2 * ch), new(ch, 2 * ch)
     dwo_xb, dwo_h = new(cin + 1, ch), new(ch, ch)
+    scratch = _build.scratch("convgru", "convgru_bwd_scratch_floats",
+                             x_seq.device, t, r, cin, ch)
     _build.launch("convgru", "convgru_bwd", x_seq, hin_seq, masks, g_out,
-                  *weights, *transposed, dx, dh0, dazr, dao, hr,
-                  dwzr_xb, dwzr_h, dwo_xb, dwo_h, t, r, cin, ch)
+                  *weights, dx, dh0, dwzr_xb, dwzr_h, dwo_xb, dwo_h,
+                  scratch, scratch.numel(), t, r, cin, ch)
     return (dx, dh0, dwzr_xb[:cin], dwzr_h, dwzr_xb[cin], dwo_xb[:cin],
             dwo_h, dwo_xb[cin])
 

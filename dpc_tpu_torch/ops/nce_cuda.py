@@ -50,7 +50,8 @@ def nce_forward(rows, cols, pos, targets):
     r, c, d = _check_shapes(rows, cols, pos, targets)
     lse = torch.empty(r, device=rows.device, dtype=torch.float32)
     rank = torch.empty_like(lse)
-    scratch = _scratch("nce_fwd_scratch_floats", r, c, d, rows.device)
+    scratch = _build.scratch("nce", "nce_fwd_scratch_floats", rows.device,
+                             r, c, d)
     _build.launch("nce", "nce_fwd", rows, cols, pos, targets.contiguous(),
                   lse, rank, scratch, scratch.numel(), r, c, d)
     return lse, rank
@@ -65,7 +66,8 @@ def nce_backward(rows, cols, lse, g):
     _build.check_cuda_f32(rows, cols, lse, g)
     r, c, d = _check_shapes(rows, cols, lse, g)
     drows, dcols = torch.empty_like(rows), torch.empty_like(cols)
-    scratch = _scratch("nce_bwd_scratch_floats", r, c, d, rows.device)
+    scratch = _build.scratch("nce", "nce_bwd_scratch_floats", rows.device,
+                             r, c, d)
     _build.launch("nce", "nce_bwd", rows, cols, lse, g, drows, dcols,
                   scratch, scratch.numel(), r, c, d)
     return drows, dcols
@@ -81,12 +83,6 @@ def _check_shapes(rows, cols, *per_row):
         raise ValueError(f"per-row inputs must be [{r}]: "
                          f"{[tuple(v.shape) for v in per_row]}")
     return r, cols.shape[0], rows.shape[1]
-
-
-def _scratch(size_fn, r, c, d, device):
-    """The f32 scratch (operand planes, partials) an entry point needs."""
-    n = _build.query("nce", size_fn, r, c, d)
-    return torch.empty(n, device=device, dtype=torch.float32)
 
 
 class _LseRank(torch.autograd.Function):
