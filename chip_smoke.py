@@ -30,6 +30,15 @@ Phases, each printing its facts before the next starts:
   5. cli      python -m dpc_tpu_torch.train.pretrain for 2 synthetic steps;
               python -m dpc_tpu_torch.train.evaluate for 1 epoch of 2 steps
               plus val, then --test random on a few synthetic videos
+  6. frames   both CLIs on a UCF-shaped tree of 320x240 JPEGs written with
+              the port's encoder (16 videos of 150 frames): the pretrain
+              flagship for 2 epochs with val, epoch and step checkpoints;
+              a mid-epoch resume from a step file alone and an epoch
+              resume, each step's loss within 1e-3 of the uninterrupted
+              run's; the finetune CLI from that run and the dense test of
+              the finetune run; then the CLI's clips/s and device busy
+              share in its second epoch, the loader alone in thread and
+              process mode, and one thread's decode and augment times
 Then one JSON line of per-kernel results, the card's name and power limit,
 and a last line {"ok": true, "device": {...}}.  Any failure exits non-zero
 before the last line.  Without a CUDA device it exits 2 and prints no result.
@@ -57,6 +66,8 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 
@@ -872,14 +883,17 @@ def phase_lc(profile: str | None) -> dict:
 # 5. the CLIs
 # ---------------------------------------------------------------------------
 
-def _run_cli(main, argv, what: str, kernels) -> str:
+def _run_cli(main, argv, what: str, kernels, log_dir=None) -> str:
+    """Run a CLI's ``main`` in this process with the launch counts set to 0
+    just before it and read just after; its run directory goes under
+    ``log_dir`` (a temporary directory when None)."""
     from dpc_tpu_torch.ops import _build
 
     _build.reset_launches()
     buf = io.StringIO()
     with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
         with contextlib.redirect_stdout(buf):
-            main(argv + ["--log_dir", tmp])
+            main(argv + ["--log_dir", str(log_dir or tmp)])
     out = buf.getvalue()
     for line in out.splitlines():
         log(f"[{what}] {line}")
@@ -919,6 +933,230 @@ def phase_cli() -> None:
                    "test cli", ("convgru_fwd", "maxpool_relu_fwd"))
     line = [ln for ln in out.splitlines() if ln.startswith("[test] loss")]
     expect(bool(line) and "top1" in line[0], "dense test printed no top1")
+
+
+# ---------------------------------------------------------------------------
+# 6. both CLIs on a JPEG frame tree
+# ---------------------------------------------------------------------------
+
+# the flagship of the pretrain CLI and the frame tree it reads
+FRAMES_PRETRAIN = ["--net", "resnet18", "--img_dim", "128", "--num_seq", "8",
+                   "--seq_len", "5", "--pred_step", "3", "--batch_size", "64",
+                   "--nce_impl", "fused"]
+FRAMES_LC = ["--net", "resnet18", "--img_dim", "128", "--num_seq", "8",
+             "--seq_len", "5", "--batch_size", "64"]
+FRAMES_TREE = dict(num_videos=16, num_frames=150, height=240, width=320,
+                   num_classes=101, train_rows=128, test_rows=224)
+RESUME_TOL = 1e-3  # relative gap of a resumed step's loss to the original
+
+
+def _train_losses(out: str) -> dict:
+    """{(epoch, step): loss} from the loop's progress lines."""
+    found = re.findall(r"^\[train\] epoch (\d+) \[(\d+)/\d+\] loss (\S+)",
+                       out, re.M)
+    return {(int(e), int(i)): float(v) for e, i, v in found}
+
+
+def _loader_rate(ds, batch: int, workers: int, mode: str, n_batches: int,
+                 warm: int) -> float:
+    """clips/s of a ClipLoader alone (no device work) over its batches
+    after the first ``warm`` (a process pool's first batch waits for the
+    workers to start; threads start at once)."""
+    from dpc_tpu_torch.data.loader import ClipLoader
+
+    loader = ClipLoader(ds, batch, num_workers=workers, worker_mode=mode,
+                        seed=0)
+    stamps = [time.perf_counter()]
+    try:
+        epoch = 0
+        while len(stamps) <= n_batches:
+            loader.set_epoch(epoch)
+            for _ in loader:
+                stamps.append(time.perf_counter())
+                if len(stamps) > n_batches:
+                    break
+            epoch += 1
+    finally:
+        loader.close()
+    return (n_batches - warm) * batch / (stamps[-1] - stamps[warm])
+
+
+def phase_frames(pre_args=FRAMES_PRETRAIN, lc_args=FRAMES_LC,
+                 tree_kw=FRAMES_TREE, device: str = "cuda") -> dict:
+    """Both CLIs on a UCF-shaped JPEG tree written with the port's encoder.
+    The pretrain CLI runs two epochs with a val epoch each and step
+    checkpoints; a hook on the dropout seed (called as each train step is
+    queued) copies the run's checkpoints as they stand before step (0, 1)
+    and before step (1, 0).  From those copies a mid-epoch resume (the step
+    file alone) and an epoch resume each rerun one step, whose loss must
+    match the uninterrupted run's.  Then the finetune CLI from the pretrain
+    run, the dense test of the finetune run, and the feed's rates: the
+    pretrain CLI's clips/s and busy share in its second train epoch (its
+    ``--profile``), the loader alone, one thread's decode and augment."""
+    from dpc_tpu_torch import native
+    from dpc_tpu_torch.data import augment
+    from dpc_tpu_torch.data.frame_tree import render_frames, write_frame_tree
+    from dpc_tpu_torch.train import evaluate, loop, pretrain
+
+    workers = os.cpu_count() or 1
+    for cmd in (["ls", "-l", "/usr/include/jpeglib.h"],
+                ["sh", "-c", "ldconfig -p | grep -i jpeg"]):
+        res = subprocess.run(cmd, capture_output=True, text=True, timeout=60)
+        log(f"[frames] $ {' '.join(cmd)}: "
+            f"{(res.stdout + res.stderr).strip() or '(nothing)'}")
+    t0 = time.perf_counter()
+    log(f"[frames] JPEG codec: {native.backend()} "
+        f"(built in {time.perf_counter() - t0:.1f} s); cpu_count {workers}")
+    rates = {"cpu_count": workers, "backend": native.backend()}
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        root = write_frame_tree(str(tmp / "data"), workers=workers,
+                                **tree_kw)
+        base = Path(root) / "ucf101"
+        rows = (base / "test_split01.csv").read_text().splitlines()
+        (base / "test_split02.csv").write_text("\n".join(rows[:16]) + "\n")
+        n_frames = tree_kw["num_videos"] * tree_kw["num_frames"]
+        log(f"[frames] wrote {n_frames} JPEG frames of "
+            f"{tree_kw['width']}x{tree_kw['height']} in "
+            f"{time.perf_counter() - t0:.1f} s")
+        # the codec against the frames it was given (video 0)
+        first = sorted((base / "frame").glob("*/*"))[0]
+        src = render_frames(0, np.arange(3), tree_kw["height"],
+                            tree_kw["width"])
+        got = np.stack([native.decode_file(str(first / f"image_{i:05d}.jpg"))
+                        for i in (1, 2, 3)])
+        err = float(np.abs(got.astype(np.float64) - src).mean())
+        log(f"[frames] decoded against the source: mean |error| {err:.3f} "
+            "levels")
+        expect(got.shape == src.shape and err < 3.0,
+               f"the codec's round trip is off by {err:.3f} levels")
+
+        data = ["--dataset", "ucf101", "--data_root", root,
+                "--num_workers", str(workers), "--print_freq", "1",
+                "--device", device]
+        log_dir = tmp / "pretrain"
+        log_dir.mkdir()
+        snaps = {"mid": tmp / "mid", "epoch": tmp / "epoch"}
+
+        def run_dir() -> Path:
+            (run,) = [p for p in log_dir.iterdir() if p.is_dir()]
+            return run
+
+        def snap_mid():  # before step (0, 1): the step file of (0, 0)
+            shutil.copytree(run_dir() / "model_steps",
+                            snaps["mid"] / "model_steps")
+
+        def snap_epoch():  # before step (1, 0): the epoch-1 file
+            (snaps["epoch"] / "model").mkdir(parents=True)
+            shutil.copy(run_dir() / "model" / "epoch1.pth.tar",
+                        snaps["epoch"] / "model")
+
+        hooks = {(0, 1): snap_mid, (1, 0): snap_epoch}
+        real_seed = loop.step_seed
+
+        def hooked_seed(seed, epoch, idx):
+            hook = hooks.pop((epoch, idx), None)
+            if hook is not None:
+                hook()
+            return real_seed(seed, epoch, idx)
+
+        profile = tmp / "profile.txt"
+        loop.step_seed = hooked_seed
+        try:
+            out = _run_cli(pretrain.main, [
+                *data, *pre_args, "--epochs", "2", "--save_every_steps", "1",
+                "--profile", str(profile)], "frames pretrain",
+                PRETRAIN_KERNELS, log_dir=log_dir)
+        finally:
+            loop.step_seed = real_seed
+        expect(not hooks, f"the checkpoint hooks did not all run: {hooks}")
+        vals = [ln for ln in out.splitlines()
+                if re.match(r"epoch \d: train", ln) and "| val loss" in ln]
+        expect(len(vals) == 2, "the pretrain CLI printed no val line in "
+                               "each of its two epochs")
+        losses = _train_losses(out)
+        expect(len(losses) == 4
+               and all(math.isfinite(v) for v in losses.values()),
+               f"pretrain CLI losses {losses}")
+        names = sorted(p.name for p in (run_dir() / "model").iterdir())
+        expect(names[0] == "epoch2.pth.tar" and len(names) == 2
+               and names[1].startswith("model_best_epoch"),
+               f"model/ holds {names}, not the latest and the best")
+        busy = re.search(r"\[profile\] (\d+) train steps: wall (\S+) ms, "
+                         r"(\S+) clips/s, device busy \S+ ms \((\S+)%\)",
+                         out)
+        expect(busy is not None, "the pretrain CLI printed no profile line")
+        rates["cli_clips_per_s"] = float(busy.group(3))
+        rates["cli_busy_pct"] = float(busy.group(4))
+
+        gaps = {}
+        for name, argv, key, line in (
+                ("mid-epoch", ["--epochs", "1", "--save_every_steps", "1"],
+                 (0, 1), "resumed mid-epoch: epoch 0 batch 1"),
+                ("epoch", ["--epochs", "2", "--steps_per_epoch", "1"],
+                 (1, 0), "resumed epoch 1")):
+            out = _run_cli(pretrain.main, [
+                *data, *pre_args, "--resume", str(snaps[name.split("-")[0]]),
+                *argv], f"frames resume {name}", ("nce_fwd",))
+            expect(line in out, f"the {name} resume printed no '{line}'")
+            got = _train_losses(out)
+            expect(list(got) == [key], f"{name} resume ran steps {list(got)}")
+            gaps[name] = abs(got[key] - losses[key]) / abs(losses[key])
+            log(f"[frames] {name} resume: step {key} loss {got[key]:.6f} "
+                f"against {losses[key]:.6f} uninterrupted, relative gap "
+                f"{gaps[name]:.2e}")
+            expect(gaps[name] <= RESUME_TOL,
+                   f"{name} resume gap {gaps[name]:.2e} > {RESUME_TOL}")
+
+        ft_dir = tmp / "finetune"
+        out = _run_cli(evaluate.main, [
+            *data, *lc_args, "--epochs", "1", "--pretrain", str(run_dir())],
+            "frames finetune", LC_KERNELS, log_dir=ft_dir)
+        expect("[transfer_load] loaded" in out and any(
+            ln.startswith("epoch 0: train") and "| val loss" in ln
+            for ln in out.splitlines()), "the finetune CLI did not train "
+                                        "from the pretrain run and validate")
+        (ft_run,) = [p for p in ft_dir.iterdir() if p.is_dir()]
+        out = _run_cli(evaluate.main, [
+            *data, *lc_args, "--test", str(ft_run), "--split", "2"],
+            "frames test", ("convgru_fwd", "maxpool_relu_fwd"))
+        top1 = [ln for ln in out.splitlines() if ln.startswith("[test] loss")]
+        expect(bool(top1) and "top1" in top1[0] and "16 videos" in out,
+               "the dense test of the finetune run printed no top1")
+
+        # the feed alone
+        train_ds = pretrain.get_dataset(
+            pretrain.config_from_args(pretrain.build_parser().parse_args(
+                [*data, *pre_args])), "train")
+        batch = int(pre_args[pre_args.index("--batch_size") + 1])
+        for mode, n, warm in (("thread", 2, 0), ("process", 3, 1)):
+            rates[f"loader_{mode}_clips_per_s"] = _loader_rate(
+                train_ds, batch, workers, mode, n, warm)
+            log(f"[frames] loader alone, {mode} mode, {workers} workers, "
+                f"B={batch}, batches {warm + 1}-{n}: "
+                f"{rates[f'loader_{mode}_clips_per_s']:.2f} clips/s")
+        paths = sorted(first.glob("*.jpg"))
+        t0 = time.perf_counter()
+        frames = np.stack([native.decode_file(str(p)) for p in paths])
+        rates["decode_ms_per_frame"] = (
+            1e3 * (time.perf_counter() - t0) / len(paths))
+        img_dim = int(pre_args[pre_args.index("--img_dim") + 1])
+        recipe = augment.pretrain_transform("ucf101", img_dim)
+        rng = np.random.default_rng(0)
+        clip_len = 40
+        t0 = time.perf_counter()
+        for i in range(0, len(frames) - clip_len + 1, clip_len):
+            recipe(frames[i:i + clip_len], rng)
+        n_clips = len(frames) // clip_len
+        rates["augment_ms_per_clip"] = (
+            1e3 * (time.perf_counter() - t0) / n_clips)
+        log(f"[frames] one thread: decode {rates['decode_ms_per_frame']:.3f} "
+            f"ms/frame ({native.backend()}), pretrain augment "
+            f"{rates['augment_ms_per_clip']:.1f} ms/clip of {clip_len} "
+            f"frames; train CLI {rates['cli_clips_per_s']:.2f} clips/s in "
+            f"its second epoch, device busy {rates['cli_busy_pct']:.1f}%")
+    return rates
 
 
 # ---------------------------------------------------------------------------
@@ -1016,9 +1254,14 @@ def main(argv=None) -> int:
         s = phase_step(args.profile or None)
         lc = phase_lc(args.profile or None)
         phase_cli()
+        frames = phase_frames()
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    log(f"[frames] rates on {smi.stdout.strip()}: {json.dumps(frames)}")
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps(kernels_line(k, {"pretrain": s["launches"],
                                       "lc": lc["launches"]})))

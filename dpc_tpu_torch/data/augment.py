@@ -1,12 +1,20 @@
-"""The parts of ``dpc_tpu/data/augment.py`` the synthetic pretraining recipe
-needs: ``Compose``, ``Scale``, ``CenterCrop``, ``RandomSizedCrop`` and
-``Normalize``, over numpy uint8 clips ``[T, H, W, C]``.
+"""The host augmentation of the frame pipeline (a numpy copy of
+``dpc_tpu/data/augment.py``), over uint8 clips ``[T, H, W, C]``:
+``Compose``, ``Padding``, ``Scale``, ``CenterCrop``, ``RandomCrop``,
+``RandomCropWithProb``, ``RandomSizedCrop``, ``RandomHorizontalFlip``,
+``RandomGray``, ``ColorJitter``, ``Normalize`` and the pretrain and
+finetune recipes.
 
-The draws and geometry are those of the JAX package (reference
-``utils/augmentation.py``).  The resizes are written in numpy with OpenCV's
-pixel-centre conventions (``INTER_LINEAR`` / ``INTER_NEAREST``) so the port
-needs no OpenCV; rounding of the bilinear blend may differ from OpenCV's
-fixed-point arithmetic by one grey level.
+The draws, their order and the geometry are those of the JAX package
+(reference ``utils/augmentation.py``), so a clip sampled with the same
+``np.random.Generator`` is the same clip.  OpenCV is not used: the resizes
+follow its pixel-centre conventions (``INTER_LINEAR`` / ``INTER_NEAREST``),
+``cv2.LUT`` is a numpy gather, and the hue shift rewrites OpenCV's uint8
+``COLOR_RGB2HSV_FULL`` / ``COLOR_HSV2RGB_FULL`` round trip (fixed-point
+forward, float32 back).  The bilinear blend and the float32 hue sector may
+round one grey level the other way.  Not ported: ``RandomRotation`` (no
+recipe uses it), ``FiveCrop``/``PerCrop`` and the ``--device_augment`` host
+half ``HostScaleCrop``.
 """
 
 from __future__ import annotations
@@ -72,19 +80,30 @@ def shortside_dims(h: int, w: int, s: int) -> tuple[int, int]:
     return s, int(s * w / h)
 
 
-class Scale:
-    """Aspect-preserving short-side resize."""
+class Padding:
+    def __init__(self, pad: int):
+        self.pad = pad
 
-    def __init__(self, size: int, interpolation: str = "nearest"):
+    def __call__(self, clip, rng):
+        p = self.pad
+        return np.pad(clip, ((0, 0), (p, p), (p, p), (0, 0)))
+
+
+class Scale:
+    """Short-side resize (int size) or fixed (w, h) resize."""
+
+    def __init__(self, size, interpolation: str = "nearest"):
         self.size = size
         self.interpolation = interpolation
 
     def __call__(self, clip, rng):
         t, h, w, c = clip.shape
-        oh, ow = shortside_dims(h, w, self.size)
-        if (oh, ow) == (h, w):
-            return clip
-        return _resize_clip(clip, (ow, oh), self.interpolation)
+        if isinstance(self.size, int):
+            oh, ow = shortside_dims(h, w, self.size)
+            if (oh, ow) == (h, w):
+                return clip
+            return _resize_clip(clip, (ow, oh), self.interpolation)
+        return _resize_clip(clip, tuple(self.size), self.interpolation)
 
 
 def _crop(clip, y, x, th, tw):
@@ -103,11 +122,67 @@ class CenterCrop:
         return _crop(clip, y1, x1, th, tw)
 
 
+class RandomCrop:
+    """Random crop: one window for the clip (``consistent``) or one per
+    frame.  The reference's optical-flow proposals are not ported: no
+    recipe passes a flow map."""
+
+    def __init__(self, size, consistent: bool = True):
+        self.size = (size, size) if isinstance(size, (int, float)) else size
+        self.consistent = consistent
+
+    def __call__(self, clip, rng):
+        t, h, w, c = clip.shape
+        th, tw = self.size
+        if w == tw and h == th:
+            return clip
+        if self.consistent:
+            x1 = int(rng.integers(0, w - tw + 1))
+            y1 = int(rng.integers(0, h - th + 1))
+            return _crop(clip, y1, x1, th, tw)
+        out = np.empty((t, th, tw, c), clip.dtype)
+        for i in range(t):
+            x1 = int(rng.integers(0, w - tw + 1))
+            y1 = int(rng.integers(0, h - th + 1))
+            out[i] = clip[i, y1: y1 + th, x1: x1 + tw]
+        return out
+
+
+class RandomCropWithProb:
+    def __init__(self, size, p: float = 0.8, consistent: bool = True):
+        self.size = (size, size) if isinstance(size, (int, float)) else size
+        self.p = p
+        self.consistent = consistent
+
+    def __call__(self, clip, rng):
+        t, h, w, c = clip.shape
+        th, tw = self.size
+        if w == tw and h == th:
+            return clip
+
+        def corner():
+            if rng.random() < self.p:
+                return (int(rng.integers(0, w - tw + 1)),
+                        int(rng.integers(0, h - th + 1)))
+            return (int(round((w - tw) / 2.0)), int(round((h - th) / 2.0)))
+
+        if self.consistent:
+            x1, y1 = corner()
+            return _crop(clip, y1, x1, th, tw)
+        out = np.empty((t, th, tw, c), clip.dtype)
+        for i in range(t):
+            x1, y1 = corner()
+            out[i] = clip[i, y1: y1 + th, x1: x1 + tw]
+        return out
+
+
 class RandomSizedCrop:
     """Area ∈ [0.5, 1], aspect ∈ [3/4, 4/3], 10 attempts, fallback
     Scale + CenterCrop, p-gated else CenterCrop (reference ``:144-195``).
     One draw for the whole clip (the reference's ``consistent=True``, the
-    only form the pretraining recipes use)."""
+    only form the recipes use)."""
+
+    consistent = True
 
     def __init__(self, size: int, interpolation: str = "bilinear",
                  p: float = 1.0,
@@ -140,12 +215,298 @@ class RandomSizedCrop:
         return CenterCrop(self.size)(scaled, rng)
 
 
+class RandomHorizontalFlip:
+    def __init__(self, consistent: bool = True,
+                 command: Optional[str] = None):
+        self.consistent = consistent
+        self.p = {"left": 0.0, "right": 1.0}.get(command, 0.5)
+
+    def __call__(self, clip, rng):
+        if self.consistent:
+            return clip[:, :, ::-1] if rng.random() < self.p else clip
+        flips = rng.random(clip.shape[0]) < self.p
+        out = clip.copy()
+        out[flips] = out[flips, :, ::-1]
+        return out
+
+
+class RandomGray:
+    """Channel splitting: replace RGB with one channel replicated ×3."""
+
+    def __init__(self, consistent: bool = True, p: float = 0.5):
+        self.consistent = consistent
+        self.p = p
+
+    def __call__(self, clip, rng):
+        if self.consistent:
+            if rng.random() < self.p:
+                ch = int(rng.integers(0, 3))
+                return np.repeat(clip[..., ch: ch + 1], 3, axis=-1)
+            return clip
+        picks = [(i, int(rng.integers(0, 3))) for i in range(clip.shape[0])
+                 if rng.random() < self.p]
+        out = clip.copy()
+        if picks:
+            idx, chans = (list(x) for x in zip(*picks))
+            out[idx] = np.take_along_axis(
+                clip[idx], np.asarray(chans)[:, None, None, None], axis=3)
+        return out
+
+
+# The colour adjustments work on frames [n, H, W, 3] with one factor per
+# frame, each frame computed exactly as a lone frame would be: whole-clip
+# numpy calls spend their time with the interpreter lock released, where
+# frame-sized ones hold it, so a thread-pool loader scales.
+
+def _grayscale(img: np.ndarray) -> np.ndarray:
+    # ITU-R 601-2 luma, matching PIL convert('L') / torchvision
+    g = (img[..., 0] * 0.299 + img[..., 1] * 0.587
+         + img[..., 2] * 0.114).astype(np.uint8)
+    return g[..., None]
+
+
+def _blend_luts(factors: np.ndarray, others: np.ndarray) -> np.ndarray:
+    """``[n, 256]`` uint8 tables of torchvision's blend
+    ``clip(v·factor + other·(1−factor))`` with a scalar ``other`` a frame,
+    in float32 as the per-pixel formula computes it."""
+    v = np.arange(256, dtype=np.float32)
+    f = factors.astype(np.float32)[:, None]
+    w = (1.0 - factors).astype(np.float32)[:, None]
+    o = np.asarray(others, np.float32)[:, None]
+    return np.clip(v * f + o * w, 0, 255).astype(np.uint8)
+
+
+def _apply_luts(frames: np.ndarray, luts: np.ndarray) -> np.ndarray:
+    idx = frames.astype(np.intp)
+    idx += (256 * np.arange(len(frames)))[:, None, None, None]
+    return np.take(luts.ravel(), idx)
+
+
+def _brightness(frames, factors):
+    return _apply_luts(frames, _blend_luts(factors, np.zeros(len(frames))))
+
+
+def _contrast(frames, factors):
+    means = _grayscale(frames).reshape(len(frames), -1).mean(axis=1)
+    return _apply_luts(frames, _blend_luts(factors,
+                                           np.floor(means + 0.5)))
+
+
+def _saturation(frames, factors):
+    out = frames.astype(np.float32)
+    out *= factors.astype(np.float32)[:, None, None, None]
+    out += (_grayscale(frames).astype(np.float32)
+            * (1.0 - factors).astype(np.float32)[:, None, None, None])
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
+# OpenCV's uint8 HSV tables (color_hsv: hsv_shift = 12, rounded divisions)
+_HSV_SHIFT = 12
+_SDIV = np.concatenate([[0], np.rint((255 << _HSV_SHIFT)
+                                     / np.arange(1, 256))]).astype(np.int32)
+_HDIV = np.concatenate([[0], np.rint((256 << _HSV_SHIFT)
+                                     / (6.0 * np.arange(1, 256)))]
+                       ).astype(np.int32)
+# per hue sector, the slots of (v, p, q, t) that hold r, g and b
+_RGB_SLOTS = np.array([[0, 3, 1], [2, 0, 1], [1, 0, 3], [1, 2, 0],
+                       [3, 1, 0], [0, 1, 2]])
+
+
+def _hue_shift(frames: np.ndarray, shifts: np.ndarray) -> np.ndarray:
+    """OpenCV's ``RGB2HSV_FULL`` (hue over 256 steps, fixed point), the
+    per-frame hue shift with 8-bit wrap, and ``HSV2RGB_FULL`` (hue over
+    255 steps, float32), in numpy."""
+    r, g, b = (frames[..., i].astype(np.int32) for i in range(3))
+    v = np.maximum(np.maximum(r, g), b)
+    diff = v - np.minimum(np.minimum(r, g), b)
+    half = 1 << (_HSV_SHIFT - 1)
+    s = (diff * _SDIV[v] + half) >> _HSV_SHIFT
+    h = np.where(v == r, g - b,
+                 np.where(v == g, b - r + 2 * diff, r - g + 4 * diff))
+    h *= _HDIV[diff]
+    h += half
+    h >>= _HSV_SHIFT
+    h += shifts.astype(np.int32)[:, None, None]
+    h &= 255  # a negative hue wraps as OpenCV's +256 does
+    hf = h.astype(np.float32)
+    hf *= np.float32(6.0 / 255)
+    sector = hf.astype(np.int32)
+    f = hf - sector
+    sf = s.astype(np.float32)
+    sf *= np.float32(1.0 / 255)
+    vf = v.astype(np.float32)
+    n = vf.size
+    tab = np.empty((n, 4), np.float32)
+    tab[:, 0] = vf.ravel()
+    tab[:, 1] = (vf * (1 - sf)).ravel()
+    tab[:, 2] = (vf * (1 - sf * f)).ravel()
+    tab[:, 3] = (vf * (1 - sf * (1 - f))).ravel()
+    idx = _RGB_SLOTS[sector.ravel() % 6] + (4 * np.arange(n))[:, None]
+    out = np.rint(np.take(tab.ravel(), idx))
+    return out.astype(np.uint8).reshape(frames.shape)
+
+
+def _hue(frames, factors, chunk: int = 8):
+    """The hue shift of each frame, ``chunk`` frames a call: long enough
+    calls to release the interpreter lock, short enough that their int32
+    intermediates stay in cache."""
+    shifts = np.asarray([int(round(f * 255)) for f in factors])
+    # a zero shift is the identity: the uint8 HSV round trip is lossy
+    moved = np.flatnonzero(shifts)
+    out = frames.copy()
+    for lo in range(0, len(moved), chunk):
+        sel = moved[lo:lo + chunk]
+        out[sel] = _hue_shift(frames[sel], shifts[sel])
+    return out
+
+
+def adjust_brightness(img: np.ndarray, factor: float) -> np.ndarray:
+    return _brightness(img[None], np.array([factor]))[0]
+
+
+def adjust_contrast(img: np.ndarray, factor: float) -> np.ndarray:
+    return _contrast(img[None], np.array([factor]))[0]
+
+
+def adjust_saturation(img: np.ndarray, factor: float) -> np.ndarray:
+    return _saturation(img[None], np.array([factor]))[0]
+
+
+def adjust_hue(img: np.ndarray, factor: float) -> np.ndarray:
+    """Shift the hue wheel of one image by ``factor`` ∈ [−0.5, 0.5]
+    (8-bit wrap, the PIL/torchvision uint8 semantics)."""
+    return _hue(img[None], np.array([factor]))[0]
+
+
+_FRAME_OPS = {"brightness": _brightness, "contrast": _contrast,
+              "saturation": _saturation, "hue": _hue}
+
+
+class ColorJitter:
+    def __init__(self, brightness=0.0, contrast=0.0, saturation=0.0,
+                 hue=0.0, consistent: bool = False, p: float = 1.0):
+        self.brightness = self._range(brightness)
+        self.contrast = self._range(contrast)
+        self.saturation = self._range(saturation)
+        self.hue = self._range(hue, center=0.0, clip_zero=False)
+        self.consistent = consistent
+        self.p = p
+
+    @staticmethod
+    def _range(v, center: float = 1.0, clip_zero: bool = True):
+        if isinstance(v, (tuple, list)):
+            lo, hi = v
+        else:
+            lo, hi = center - v, center + v
+            if clip_zero:
+                lo = max(lo, 0.0)
+        return None if lo == hi == center else (lo, hi)
+
+    def _params(self, rng) -> list[tuple[str, float]]:
+        """One frame's (op, factor) list, in the order it applies them."""
+        ops = [(name, rng.uniform(*bounds)) for name, bounds in
+               (("brightness", self.brightness), ("contrast", self.contrast),
+                ("saturation", self.saturation), ("hue", self.hue))
+               if bounds is not None]
+        rng.shuffle(ops)
+        return ops
+
+    def __call__(self, clip, rng):
+        if rng.random() >= self.p:
+            return clip
+        t = clip.shape[0]
+        plans = ([self._params(rng)] * t if self.consistent
+                 else [self._params(rng) for _ in range(t)])
+        # frame i applies plans[i] in order; the k-th op of all frames runs
+        # as one call per op kind
+        out = clip.copy()
+        for k in range(max(len(plan) for plan in plans)):
+            for name, fn in _FRAME_OPS.items():
+                idx = [i for i, plan in enumerate(plans) if plan[k][0] == name]
+                if idx:
+                    factors = np.array([plans[i][k][1] for i in idx])
+                    out[idx] = fn(out[idx], factors)
+        return out
+
+
 class Normalize:
-    """uint8 [T,H,W,C] → float32 ``(x/255 − mean)/std``."""
+    """uint8 [T,H,W,C] → float32 ``(x/255 − mean)/std``, as one per-channel
+    scale and offset (dpc_tpu's fused form; within 5e-7 of the literal
+    expression)."""
 
     def __init__(self, mean=IMAGENET_MEAN, std=IMAGENET_STD):
         self.mean = np.asarray(mean, np.float32)
         self.std = np.asarray(std, np.float32)
+        std64 = self.std.astype(np.float64)
+        self._scale = (1.0 / (255.0 * std64)).astype(np.float32)
+        self._offset = (-self.mean.astype(np.float64) / std64
+                        ).astype(np.float32)
 
     def __call__(self, clip, rng=None):
-        return (clip.astype(np.float32) / 255.0 - self.mean) / self.std
+        out = np.multiply(clip, self._scale, dtype=np.float32)
+        out += self._offset
+        return out
+
+
+def frame_consistent(transform) -> bool:
+    """True when the transform maps every frame of a clip the same way
+    (every draw per clip, or no draw), so a frame's output does not depend
+    on the frames beside it: the precondition of the dense test's
+    decode-each-frame-once path.  Unknown ops count as not consistent."""
+    if isinstance(transform, Compose):
+        return all(frame_consistent(op) for op in transform.ops)
+    if hasattr(transform, "consistent"):
+        return bool(transform.consistent)
+    return isinstance(transform, (Padding, Scale, CenterCrop, Normalize))
+
+
+# ---------------------------------------------------------------------------
+# Recipes (dpc/main.py:115-133, eval/test.py:121-126,161-176)
+# ---------------------------------------------------------------------------
+
+def pretrain_transform(dataset: str, img_dim: int) -> Compose:
+    if dataset in ("ucf101", "hmdb51", "synthetic"):
+        return Compose([
+            RandomHorizontalFlip(consistent=True),
+            RandomCrop(size=224, consistent=True),
+            Scale(size=(img_dim, img_dim)),
+            RandomGray(consistent=False, p=0.5),
+            ColorJitter(0.5, 0.5, 0.5, 0.25, consistent=False, p=1.0),
+            Normalize(),
+        ])
+    if dataset == "k400":
+        return Compose([
+            RandomSizedCrop(size=img_dim, p=1.0),
+            RandomHorizontalFlip(consistent=True),
+            RandomGray(consistent=False, p=0.5),
+            ColorJitter(0.5, 0.5, 0.5, 0.25, consistent=False, p=1.0),
+            Normalize(),
+        ])
+    raise ValueError(f"no pretrain recipe for {dataset!r}")
+
+
+def finetune_transform(img_dim: int, mode: str = "train") -> Compose:
+    """The LC recipes; the five-crop test recipe is not ported (ROADMAP
+    queue 1 item 12)."""
+    if mode == "train":
+        return Compose([
+            RandomSizedCrop(size=224),
+            Scale(size=(img_dim, img_dim)),
+            RandomHorizontalFlip(consistent=True),
+            ColorJitter(0.5, 0.5, 0.5, 0.25, consistent=True, p=0.3),
+            Normalize(),
+        ])
+    if mode == "val":
+        return Compose([
+            RandomSizedCrop(size=224, p=0.3),
+            Scale(size=(img_dim, img_dim)),
+            RandomHorizontalFlip(consistent=True),
+            ColorJitter(0.2, 0.2, 0.2, 0.1, consistent=True, p=0.3),
+            Normalize(),
+        ])
+    # test: the deterministic centre path (eval/test.py:121-126)
+    return Compose([
+        RandomSizedCrop(size=224, p=0.0),
+        Scale(size=(img_dim, img_dim)),
+        Normalize(),
+    ])

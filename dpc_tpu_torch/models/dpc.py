@@ -21,6 +21,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint
 
 from dpc_tpu_torch.core.config import DPCConfig
 from dpc_tpu_torch.models import convgru, layers as L, resnet2d3d
@@ -56,10 +57,15 @@ def _predictor(model: DPC, h: torch.Tensor) -> torch.Tensor:
     return L.conv2d_cl(p2, F.relu(L.conv2d_cl(p0, h)))
 
 
-def encode_blocks(model: DPC, x: torch.Tensor, cfg: DPCConfig) -> torch.Tensor:
-    """``[B, N, SL, H, W, 3]`` → PRE-ReLU ``[B, N, ls, ls, D]`` (f32)."""
+def encode_blocks(model: DPC, x: torch.Tensor, cfg: DPCConfig,
+                  remat: bool = False) -> torch.Tensor:
+    """``[B, N, SL, H, W, 3]`` → PRE-ReLU ``[B, N, ls, ls, D]`` (f32).
+    ``remat`` recomputes the backbone's activations in the backward
+    (activation checkpointing) instead of keeping them."""
     b, n, sl, h, w, c = x.shape
-    feat = model.backbone(x.reshape(b * n, sl, h, w, c))
+    x = x.reshape(b * n, sl, h, w, c)
+    feat = (checkpoint.checkpoint(model.backbone, x, use_reentrant=False)
+            if remat and torch.is_grad_enabled() else model.backbone(x))
     if feat.shape[1] != cfg.last_duration:
         raise ValueError(f"backbone time extent {feat.shape[1]} != "
                          f"{cfg.last_duration}")
@@ -69,16 +75,16 @@ def encode_blocks(model: DPC, x: torch.Tensor, cfg: DPCConfig) -> torch.Tensor:
 
 
 def predict(model: DPC, x: torch.Tensor, *, cfg: DPCConfig,
-            train: bool = True, generator: Optional[torch.Generator] = None
-            ) -> tuple[torch.Tensor, torch.Tensor]:
+            train: bool = True, generator: Optional[torch.Generator] = None,
+            remat: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """``(pred, gt)``, both ``[B, P, ls, ls, D]``: the embeddings the score
     is computed from.  GRU dropout is drawn from ``generator`` (none
-    without one)."""
+    without one); ``remat`` checkpoints the backbone."""
     if x.ndim != 6:
         raise ValueError("apply_dpc expects [B, num_seq, seq_len, H, W, 3] "
                          f"(6-D, channels-last); got shape {tuple(x.shape)}")
     ctx = x.shape[1] - cfg.pred_step
-    feature_pre = encode_blocks(model, x, cfg)
+    feature_pre = encode_blocks(model, x, cfg, remat=remat)
     gt = feature_pre[:, ctx:]                       # pre-ReLU
     feature = F.relu(feature_pre)                   # GRU input
     _, last_states = convgru.apply_convgru(

@@ -1,26 +1,34 @@
 """Downstream evaluation CLI: LC finetune / linear probe / dense test (port
 of ``dpc_tpu/train/evaluate.py``).
 
-Keeps the JAX CLI's flag names for what it runs and adds ``--device``
-(default ``cuda``).  This slice runs the synthetic dataset on one device:
-the finetune epochs with the multi-step-restart LR schedule and a
-validation pass per epoch, and ``--test random``, the dense test of
-``run_test`` (every video cut into windows, windows pooled into a fixed
-``--window_batch``, softmax averaged per video, top-1/top-5, the confusion
-matrix).  A flag that needs what is not ported yet (frame datasets,
-checkpoints, device augmentation, five-crop, several devices) raises a
-clear error.
+Keeps the JAX CLI's flags and printed lines for what it runs and adds
+``--device`` (default ``cuda``).  One device, on the ucf101 and hmdb51
+frame trees or the synthetic dataset: the finetune epochs with the
+multi-step-restart LR schedule and a validation epoch each, epoch
+checkpoints in the reference's ``.pth.tar`` layout with the best by val
+top-1, ``--resume``, ``--reset_lr``, ``--save_every_steps`` with
+exact-batch mid-epoch resume and the preemption guard, ``--pretrain`` from
+a pretrain run or a reference ``.pth.tar`` (transfer-loaded by
+state_dict name), the ``--remat`` retry when the first step runs out of
+device memory, and ``--test <run dir | .pth.tar | random>``, the dense
+test of ``run_test`` (every video cut into windows, windows pooled into a
+fixed ``--window_batch``, softmax averaged per video, top-1/top-5, the
+confusion matrix).  Device augmentation, five-crop and several devices
+raise (ROADMAP queue 1 items 12 and 13).
 
 Usage:
   python -m dpc_tpu_torch.train.evaluate --dataset synthetic --epochs 1 \
       --steps_per_epoch 2 --batch_size 8
-  python -m dpc_tpu_torch.train.evaluate --dataset synthetic --test random \
-      --synthetic_videos 4 --window_batch 8
+  python -m dpc_tpu_torch.train.evaluate --dataset ucf101 --data_root DIR \
+      --pretrain <pretrain run dir> --train_what ft --epochs 300
+  python -m dpc_tpu_torch.train.evaluate --dataset ucf101 --data_root DIR \
+      --test <finetune run dir>
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import queue
 import threading
@@ -29,14 +37,16 @@ import time
 import numpy as np
 import torch
 
+from dpc_tpu_torch.core import checkpoint as ckpt
 from dpc_tpu_torch.core.config import (DataConfig, DPCConfig, EvalConfig,
                                        ExperimentConfig, TrainConfig,
                                        resolve_device)
 from dpc_tpu_torch.data import augment
 from dpc_tpu_torch.data.loader import ClipLoader
 from dpc_tpu_torch.data.synthetic import SyntheticVideoDataset
+from dpc_tpu_torch.data.video_dataset import make_dataset
 from dpc_tpu_torch.models import lc
-from dpc_tpu_torch.train import finetune_step, optim
+from dpc_tpu_torch.train import finetune_step, loop, optim
 from dpc_tpu_torch.train.metrics import (AccuracyTable, ConfusionMeter,
                                          MetricBundle, write_log)
 
@@ -76,8 +86,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", default="")
     p.add_argument("--pretrain", default="")
     p.add_argument("--test", default="",
-                   help="'random' tests random weights; a checkpoint path "
-                        "is not ported yet")
+                   help="LC checkpoint (run dir or .pth.tar) to test; "
+                        "'random' tests random weights")
     # additions of dpc_tpu
     p.add_argument("--data_root", default="")
     p.add_argument("--compute_dtype", default="bfloat16",
@@ -96,7 +106,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--backbone_lr_scale", default=0.1, type=float)
     p.add_argument("--remat", action="store_true",
                    help="recompute the LC forward in the backward")
-    p.add_argument("--save_every_steps", default=0, type=int)
+    p.add_argument("--save_every_steps", default=0, type=int,
+                   help="mid-epoch checkpoint interval (0 = per-epoch "
+                        "only); resume continues from the exact batch")
     p.add_argument("--test_tail_window", action="store_true",
                    help="append a final tail window so trailing frames are "
                         "evaluated (the reference strides only)")
@@ -114,16 +126,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _reject_unsupported(args) -> None:
     later = {
-        "--dataset": (args.dataset != "synthetic",
-                      "queue 1 item 10 (frame datasets)"),
-        "--resume": (bool(args.resume), "queue 1 item 10 (checkpoints)"),
-        "--reset_lr": (args.reset_lr, "queue 1 item 10 (checkpoints)"),
-        "--pretrain": (bool(args.pretrain),
-                       "queue 1 item 14 (interchange)"),
-        "--test": (args.test not in ("", "random"),
-                   "queue 1 item 10 (checkpoints)"),
-        "--save_every_steps": (args.save_every_steps > 0,
-                               "queue 1 item 10 (checkpoints)"),
         "--device_augment": (args.device_augment,
                              "queue 1 item 12 (device augmentation)"),
         "--five_crop": (args.five_crop,
@@ -167,14 +169,23 @@ def config_from_args(args) -> ExperimentConfig:
                         epochs=args.epochs, batch_size=args.batch_size,
                         lr_milestones=milestones,
                         backbone_lr_scale=args.backbone_lr_scale,
-                        remat=args.remat),
+                        remat=args.remat, reset_lr=args.reset_lr),
     )
 
 
-def get_dataset(cfg: ExperimentConfig, mode: str) -> SyntheticVideoDataset:
-    """The synthetic dataset of ``mode`` with the finetune transforms:
-    train and val a random sized crop, test the centre crop."""
+def get_dataset(cfg: ExperimentConfig, mode: str):
+    """The ``mode`` split with the finetune recipes: a frame tree with the
+    reference's (``augment.finetune_transform``), or the synthetic videos
+    with a random sized crop for train and val and the centre crop for
+    test."""
     m, d = cfg.model, cfg.data
+    if d.dataset != "synthetic":
+        return make_dataset(
+            d.dataset, d.data_root, mode,
+            augment.finetune_transform(m.img_dim, mode),
+            num_seq=m.num_seq, seq_len=m.seq_len, downsample=d.downsample,
+            split=d.split, return_label=True,
+            val_subsample=d.val_subsample, tail_window=d.test_tail_window)
     crop = augment.RandomSizedCrop(size=m.img_dim,
                                    p=0.0 if mode == "test" else 1.0)
     return SyntheticVideoDataset(
@@ -299,23 +310,6 @@ def run_test(cfg: ExperimentConfig, model: lc.LC, exp_dir: str, *,
     return loss, top1
 
 
-def _run_epoch(fn, loader, meters: MetricBundle, *, max_steps: int,
-               print_freq: int, label: str) -> int:
-    """Feed ``loader``'s batches to ``fn(x, y) -> metrics``; returns the
-    number of steps run."""
-    n = 0
-    for idx, (clips, labels) in enumerate(loader):
-        if max_steps and idx >= max_steps:
-            break
-        metrics = {k: float(v) for k, v in fn(clips, labels).items()}
-        meters.update(metrics, n=clips.shape[0])
-        n += 1
-        if idx % print_freq == 0:
-            print(f"{label} step {idx}: loss {metrics['loss']:.4f} "
-                  f"top1 {metrics['top1']:.4f}")
-    return n
-
-
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     _reject_unsupported(args)
@@ -327,11 +321,11 @@ def main(argv=None) -> None:
              if device.type == "cuda" else "")
           + f"; dtype={m.compute_dtype}")
 
-    exp_dir = os.path.join(
+    exp_dir = (args.resume if args.resume else os.path.join(
         args.log_dir,
         f"{args.prefix}_{args.dataset}-{m.img_dim}-sp{args.split}"
         f"_r{m.network[6:]}_lc_bs{t.batch_size}_lr{e.lr}"
-        f"_wd{e.wd}_dp{e.dropout}_train-{e.train_what}")
+        f"_wd{e.wd}_dp{e.dropout}_train-{e.train_what}"))
     os.makedirs(exp_dir, exist_ok=True)
     with open(os.path.join(exp_dir, "config.json"), "w") as f:
         f.write(cfg.to_json())
@@ -339,30 +333,78 @@ def main(argv=None) -> None:
     model = lc.build_lc(m, e.num_classes, device, dropout=e.dropout,
                         seed=LC_SEED)
     if args.test:
-        print("[warning] testing RANDOM weights")
+        if args.test == "random":
+            print("[warning] testing RANDOM weights")
+        else:
+            sd, epoch = ckpt.state_dict_of(args.test, best=True)
+            try:  # strict, then by name (eval/test.py:106-114)
+                model.load_state_dict(sd)
+            except RuntimeError:
+                print("[warning] the checkpoint's weights do not match the "
+                      "test model exactly; loading the matching names")
+                ckpt.transfer_load(model, sd)
+            print(f"loaded test checkpoint {args.test}"
+                  + (f" epoch {epoch}" if epoch is not None else ""))
         run_test(cfg, model, exp_dir, window_batch=args.window_batch)
         return
 
+    if args.pretrain:
+        ckpt.load_pretrained(args.pretrain, model)
     opt = optim.finetune_optimizer(model, e.lr, e.wd, e.train_what,
                                    e.backbone_lr_scale)
+
+    def restore(payload: dict) -> None:
+        """Parameters and running statistics, and the optimizer unless
+        --reset_lr asks for a fresh one."""
+        model.load_state_dict(payload["state_dict"])
+        if not e.reset_lr:
+            opt.load_state_dict(payload["optimizer"])
+
+    mgr = ckpt.CheckpointManager(os.path.join(exp_dir, "model"))
+    start_epoch, best_acc = args.start_epoch, 0.0
+    if args.resume:
+        epoch0, payload = ckpt.restore_latest(mgr)
+        if epoch0 is not None:
+            restore(payload)
+            best_acc = float(payload["best_acc"])
+            start_epoch = epoch0
+            print(f"resumed epoch {epoch0} (best_acc {best_acc:.4f})")
+        else:
+            print(f"[Warning] no checkpoint found at '{args.resume}'")
+    step_mgr = (ckpt.CheckpointManager(os.path.join(exp_dir, "model_steps"),
+                                       keep_best=False, step_files=True)
+                if args.save_every_steps else None)
+    start_batch = 0
+    if args.resume and step_mgr is not None:
+        payload, start_epoch, start_batch = ckpt.resume_mid_epoch(
+            step_mgr, start_epoch)
+        if payload is not None:
+            restore(payload)
+            best_acc = float(payload["best_acc"])
+            print(f"resumed mid-epoch: epoch {start_epoch} "
+                  f"batch {start_batch}")
+
     n_total = sum(p.numel() for p in model.parameters())
     trunk = sum(p.numel() for name in optim.TRUNK
                 for p in getattr(model, name).parameters())
     print(f"params: {n_total / 1e6:.2f}M total; trunk {trunk / 1e6:.2f}M "
           f"({'frozen' if e.train_what == 'last' else f'lr x{e.backbone_lr_scale}'}"
           f"); head at full lr")
-    step = finetune_step.make_finetune_step(m, e, model, opt)
+    step = loop.RematRetry(
+        lambda remat: finetune_step.make_finetune_step(
+            m, dataclasses.replace(e, remat=remat), model, opt),
+        model, opt, e.remat)
     eval_step = finetune_step.make_finetune_eval_step(m, e, model)
     gen = torch.Generator(device=device)
-    gen.manual_seed(t.seed)
 
     def loader(mode: str, seed: int) -> ClipLoader:
-        return ClipLoader(get_dataset(cfg, mode), t.batch_size,
-                          num_workers=cfg.data.num_workers,
+        return ClipLoader(get_dataset(cfg, mode),
+                          t.batch_size, num_workers=cfg.data.num_workers,
                           worker_mode=cfg.data.worker_mode,
                           prefetch_batches=cfg.data.prefetch, seed=seed)
 
-    def to_device(clips, labels):
+    def to_device(batch):
+        clips, labels = batch
         return (torch.from_numpy(np.ascontiguousarray(clips)).to(device),
                 torch.from_numpy(labels).to(device))
 
@@ -370,38 +412,74 @@ def main(argv=None) -> None:
                                                                t.seed + 1)
     print(f"train videos: {len(train_loader.dataset)}; "
           f"val videos: {len(val_loader.dataset)}")
-    best_acc = 0.0
+
+    def save_mid_epoch(ep: int, batch_idx: int) -> None:
+        ckpt.save_step_unless_duplicate(
+            step_mgr, ckpt.mid_epoch_step_id(ep, batch_idx),
+            lambda: {"epoch": ep, "batch_idx": batch_idx, "net": m.network,
+                     "state_dict": model.state_dict(),
+                     "optimizer": opt.state_dict(), "best_acc": best_acc})
+
+    guard = loop.PreemptionGuard().install() if step_mgr else None
     try:
-        for epoch in range(args.start_epoch, e.epochs):
+        for epoch in range(start_epoch, e.epochs):
             train_loader.set_epoch(epoch)
             val_loader.set_epoch(epoch)
             lr_scale = optim.multistep_restart_lr(
                 epoch, 1.0, e.lr_milestones, e.lr_gamma, e.lr_repeat)
+
+            def train_dispatch(idx, batch, epoch=epoch, lr_scale=lr_scale):
+                def reseed():
+                    gen.manual_seed(loop.step_seed(t.seed, epoch, idx))
+
+                reseed()
+                return step(reseed, *to_device(batch), gen, lr_scale)
+
+            n_train = len(train_loader)
+            train_done = (min(n_train, args.steps_per_epoch)
+                          if args.steps_per_epoch else n_train)
+
+            def save_from_val(ep, _val_idx):
+                save_mid_epoch(ep, train_done - 1)
+
             meters, vmeters = MetricBundle(), MetricBundle()
             t0 = time.perf_counter()
-            n = _run_epoch(
-                lambda x, y: step(*to_device(x, y), gen, lr_scale),
-                train_loader, meters, max_steps=args.steps_per_epoch,
-                print_freq=t.print_freq, label=f"epoch {epoch} train")
+            n = loop.run_epoch(
+                train_dispatch, train_loader, meters, mode="train",
+                print_freq=t.print_freq, epoch=epoch,
+                max_steps=args.steps_per_epoch,
+                start_batch=start_batch if epoch == start_epoch else 0,
+                step_save_fn=save_mid_epoch if step_mgr else None,
+                save_every_steps=args.save_every_steps, guard=guard)
             dt = time.perf_counter() - t0
-            nv = _run_epoch(
-                lambda x, y: eval_step(*to_device(x, y)), val_loader,
-                vmeters, max_steps=args.steps_per_epoch,
-                print_freq=t.print_freq, label=f"epoch {epoch} val")
+            nv = loop.run_epoch(
+                lambda idx, batch: eval_step(*to_device(batch)), val_loader,
+                vmeters, mode="val", print_freq=t.print_freq, epoch=epoch,
+                max_steps=args.steps_per_epoch,
+                step_save_fn=save_from_val if step_mgr else None,
+                guard=guard, train=False)
             tr, va = meters.averages(), vmeters.averages()
             print(f"epoch {epoch}: train loss {tr.get('loss', 0.0):.4f} "
                   f"top1 {tr.get('top1', 0.0):.4f} ({n} steps, {dt:.1f} s) "
                   f"| val loss {va.get('loss', 0.0):.4f} top1 "
-                  f"{va.get('top1', 0.0):.4f} ({nv} steps)")
-            best_acc = max(best_acc, va.get("top1", 0.0))
+                  f"{va.get('top1', 0.0):.4f} ({nv} steps)", flush=True)
+            val_acc = va.get("top1", 0.0)
+            best_acc = max(best_acc, val_acc)
             write_log(content=f"train top1 {tr.get('top1', 0.0):.4f}; "
-                              f"val top1 {va.get('top1', 0.0):.4f}",
+                              f"val top1 {val_acc:.4f}",
                       epoch=epoch,
                       filename=os.path.join(exp_dir, "train_log.md"))
+            mgr.save(epoch + 1,
+                     {"epoch": epoch + 1, "net": m.network,
+                      "state_dict": model.state_dict(),
+                      "optimizer": opt.state_dict(), "best_acc": best_acc},
+                     val_acc=val_acc)
     finally:
         train_loader.close()
         val_loader.close()
-    print(f"Finetune from ep {args.start_epoch} to ep {e.epochs} finished; "
+        if guard is not None:
+            guard.uninstall()
+    print(f"Finetune from ep {start_epoch} to ep {e.epochs} finished; "
           f"best val top1 {best_acc:.4f}")
 
 

@@ -1,16 +1,24 @@
 """DPC self-supervised pretraining CLI (port of
 ``dpc_tpu/train/pretrain.py``).
 
-Keeps the JAX CLI's flag names for what it runs, and adds ``--device``
-(default ``cuda``).  This slice runs the synthetic dataset on one device
-with local negatives, prints the per-epoch train loss and top-1, and
-writes ``config.json`` into the run directory.  Frame datasets,
-validation, checkpoints and resume are ROADMAP queue 1 items 9-10; a flag
-that needs them raises a clear error.
+Keeps the JAX CLI's flags and printed lines for what it runs, and adds
+``--device`` (default ``cuda``).  One device, local negatives: the ucf101,
+hmdb51 and k400 frame trees (or the synthetic dataset), a validation epoch
+after each train epoch, epoch checkpoints in the reference's ``.pth.tar``
+layout with the best by val top-1, ``--resume`` and ``--reset_lr``,
+``--save_every_steps`` with exact-batch mid-epoch resume, a SIGTERM/SIGINT
+guard that checkpoints and exits (also during validation), ``--pretrain``,
+and a retry with activation checkpointing (``--remat``) when the first step
+runs out of device memory.  The dropout draws and the loader's order are
+derived from (seed, epoch, batch), so a resumed run computes what the
+uninterrupted run did.  Device augmentation and several devices raise
+(ROADMAP queue 1 items 12 and 13).
 
 Usage:
   python -m dpc_tpu_torch.train.pretrain --dataset synthetic --epochs 1 \
       --steps_per_epoch 2 --batch_size 8 --nce_impl fused
+  python -m dpc_tpu_torch.train.pretrain --dataset ucf101 --data_root DIR \
+      --batch_size 64 --epochs 300 --save_every_steps 500
 """
 
 from __future__ import annotations
@@ -23,14 +31,17 @@ import time
 import numpy as np
 import torch
 
+from dpc_tpu_torch.core import checkpoint as ckpt
 from dpc_tpu_torch.core.config import (DataConfig, DPCConfig,
                                        ExperimentConfig, TrainConfig,
                                        experiment_name, resolve_device)
 from dpc_tpu_torch.data import augment
 from dpc_tpu_torch.data.loader import ClipLoader
 from dpc_tpu_torch.data.synthetic import SyntheticVideoDataset
+from dpc_tpu_torch.data.video_dataset import make_dataset
 from dpc_tpu_torch.models import dpc as dpc_model
-from dpc_tpu_torch.train import optim, pretrain_step
+from dpc_tpu_torch.train import loop, optim, pretrain_step
+from dpc_tpu_torch.train.metrics import MetricBundle
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -80,9 +91,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", default=0, type=int)
     p.add_argument("--synthetic_videos", default=32, type=int)
     p.add_argument("--steps_per_epoch", default=0, type=int,
-                   help="cap steps per epoch (0 = full epoch)")
-    p.add_argument("--save_every_steps", default=0, type=int)
+                   help="cap train and val steps per epoch (0 = full epoch)")
+    p.add_argument("--save_every_steps", default=0, type=int,
+                   help="mid-epoch checkpoint interval (0 = per-epoch "
+                        "only); resume continues from the exact batch")
     p.add_argument("--log_dir", default="log")
+    p.add_argument("--profile", default="",
+                   help="write a torch.profiler table of the run's second "
+                        "train epoch to this file and print its clips/s "
+                        "and the device's busy share")
     # addition of dpc_tpu_torch
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; cuda without a card fails")
@@ -91,16 +108,16 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _reject_unsupported(args) -> None:
     later = {
-        "--dataset": (args.dataset != "synthetic",
-                      "queue 1 item 10 (frame datasets)"),
-        "--resume": (bool(args.resume), "queue 1 item 10 (checkpoints)"),
-        "--pretrain": (bool(args.pretrain),
-                       "queue 1 item 14 (interchange)"),
-        "--reset_lr": (args.reset_lr, "queue 1 item 10 (checkpoints)"),
-        "--save_every_steps": (args.save_every_steps > 0,
-                               "queue 1 item 10 (checkpoints)"),
+        "--device_augment": (args.device_augment,
+                             "queue 1 item 12 (device augmentation)"),
         "--num_devices": (args.num_devices > 1,
                           "queue 1 item 13 (multi-GPU)"),
+        "--model_parallel": (args.model_parallel > 1,
+                             "queue 1 item 13 (multi-GPU)"),
+        "--negatives": (args.negatives != "local",
+                        "queue 1 item 13 (multi-GPU)"),
+        "--cross_replica_bn": (args.cross_replica_bn,
+                               "queue 1 item 13 (multi-GPU)"),
     }
     for flag, (bad, item) in later.items():
         if bad:
@@ -122,7 +139,9 @@ def config_from_args(args) -> ExperimentConfig:
                           epochs=args.epochs, start_epoch=args.start_epoch,
                           print_freq=args.print_freq,
                           train_what=args.train_what, prefix=args.prefix,
-                          seed=args.seed, num_devices=args.num_devices,
+                          resume=args.resume, pretrain=args.pretrain,
+                          reset_lr=args.reset_lr, seed=args.seed,
+                          num_devices=args.num_devices,
                           model_parallel=args.model_parallel,
                           negatives=args.negatives, nce_impl=args.nce_impl,
                           cross_replica_bn=args.cross_replica_bn,
@@ -131,16 +150,60 @@ def config_from_args(args) -> ExperimentConfig:
     )
 
 
-def synthetic_dataset(cfg: ExperimentConfig, mode: str):
+def get_dataset(cfg: ExperimentConfig, mode: str):
+    """The ``mode`` split with the pretrain recipe: the synthetic videos
+    with a random sized crop, or a frame tree with the reference's recipe
+    for its dataset (``augment.pretrain_transform``)."""
     m, d = cfg.model, cfg.data
-    return SyntheticVideoDataset(
-        transform=augment.Compose([
-            augment.RandomSizedCrop(size=m.img_dim, p=1.0),
-            augment.Normalize()]),
-        num_videos=d.synthetic_num_videos, video_len=d.synthetic_video_len,
-        frame_size=max(m.img_dim, 130), num_seq=m.num_seq,
-        seq_len=m.seq_len, downsample=d.downsample, mode=mode,
-        seed=1 if mode == "val" else 0)
+    if d.dataset == "synthetic":
+        return SyntheticVideoDataset(
+            transform=augment.Compose([
+                augment.RandomSizedCrop(size=m.img_dim, p=1.0),
+                augment.Normalize()]),
+            num_videos=d.synthetic_num_videos,
+            video_len=d.synthetic_video_len,
+            frame_size=max(m.img_dim, 130), num_seq=m.num_seq,
+            seq_len=m.seq_len, downsample=d.downsample, mode=mode,
+            seed=1 if mode == "val" else 0)
+    big = d.dataset == "k400" and m.img_dim > 140  # dpc/main.py:288
+    return make_dataset(d.dataset, d.data_root, mode,
+                        augment.pretrain_transform(d.dataset, m.img_dim),
+                        num_seq=m.num_seq, seq_len=m.seq_len,
+                        downsample=d.downsample, big=big,
+                        val_subsample=d.val_subsample)
+
+
+def _profile_epoch(path: str):
+    """Start a torch.profiler; returns ``finish(steps, batch_size)``, which
+    writes its table to ``path`` and prints the epoch's train clips/s and
+    the device's busy share (kernel time over wall time, the waits for the
+    loader included)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                     if torch.cuda.is_available() else [])
+    prof = profile(activities=acts)
+    prof.start()
+    t0 = time.perf_counter()
+
+    def finish(steps: int, batch_size: int) -> None:
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+        prof.stop()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+        summary = (f"{steps} train steps: wall {wall_ms:.1f} ms, "
+                   f"{1e3 * steps * batch_size / wall_ms:.2f} clips/s, "
+                   f"device busy {busy_ms:.1f} ms "
+                   f"({100 * busy_ms / wall_ms:.1f}%)")
+        with open(path, "a") as f:
+            f.write(summary + "\n" + prof.key_averages().table(
+                sort_by="self_cuda_time_total", row_limit=40) + "\n")
+        print(f"[profile] {summary}; table in {path}", flush=True)
+
+    return finish
 
 
 def main(argv=None) -> None:
@@ -158,47 +221,151 @@ def main(argv=None) -> None:
              if device.type == "cuda" else "")
           + f"; negatives={t.negatives}; dtype={m.compute_dtype}")
 
-    exp_dir = os.path.join(args.log_dir,
-                           f"{args.prefix}_{experiment_name(cfg)}")
+    exp_dir = (args.resume if args.resume
+               else os.path.join(args.log_dir,
+                                 f"{args.prefix}_{experiment_name(cfg)}"))
     os.makedirs(exp_dir, exist_ok=True)
     with open(os.path.join(exp_dir, "config.json"), "w") as f:
         f.write(cfg.to_json())
 
     model = dpc_model.build_dpc(m, device, seed=t.seed)
     opt = optim.pretrain_optimizer(model, t.lr, t.wd, t.train_what)
-    step = pretrain_step.make_pretrain_step(m, t, model, opt)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(t.seed)
+    if t.pretrain:
+        ckpt.load_pretrained(t.pretrain, model)
 
-    loader = ClipLoader(synthetic_dataset(cfg, "train"), t.batch_size,
-                        num_workers=cfg.data.num_workers,
-                        worker_mode=cfg.data.worker_mode,
-                        prefetch_batches=cfg.data.prefetch, seed=t.seed)
-    print(f"train videos: {len(loader.dataset)}")
+    def restore(payload: dict) -> None:
+        """Parameters, and the optimizer unless --reset_lr asks for a
+        fresh one."""
+        model.load_state_dict(payload["state_dict"])
+        if not t.reset_lr:
+            opt.load_state_dict(payload["optimizer"])
+
+    mgr = ckpt.CheckpointManager(os.path.join(exp_dir, "model"))
+    start_epoch, best_acc, iteration = t.start_epoch, 0.0, 0
+    if args.resume:
+        epoch0, payload = ckpt.restore_latest(mgr)
+        if epoch0 is not None:
+            restore(payload)
+            best_acc = float(payload["best_acc"])
+            iteration = int(payload["iteration"])
+            start_epoch = epoch0
+            print(f"resumed epoch {epoch0} (best_acc {best_acc:.4f})")
+        else:
+            # train from scratch into the resume dir, like the reference
+            # (dpc/main.py:102), but never silently
+            print(f"[Warning] no checkpoint found at '{args.resume}'")
+
+    # mid-epoch checkpoints: preemption recovery finer than an epoch
+    step_mgr = (ckpt.CheckpointManager(os.path.join(exp_dir, "model_steps"),
+                                       keep_best=False, step_files=True)
+                if args.save_every_steps else None)
+    start_batch = 0
+    if args.resume and step_mgr is not None:
+        payload, start_epoch, start_batch = ckpt.resume_mid_epoch(
+            step_mgr, start_epoch)
+        if payload is not None:
+            restore(payload)
+            best_acc = float(payload["best_acc"])
+            iteration = int(payload["iteration"])
+            print(f"resumed mid-epoch: epoch {start_epoch} "
+                  f"batch {start_batch}")
+
+    step = loop.RematRetry(
+        lambda remat: pretrain_step.make_pretrain_step(
+            m, dataclasses.replace(t, remat=remat), model, opt),
+        model, opt, t.remat)
+    eval_step = pretrain_step.make_eval_step(m, t, model)
+    gen = torch.Generator(device=device)
+
+    def loader(mode: str, seed: int) -> ClipLoader:
+        return ClipLoader(get_dataset(cfg, mode),
+                          t.batch_size, num_workers=cfg.data.num_workers,
+                          worker_mode=cfg.data.worker_mode,
+                          prefetch_batches=cfg.data.prefetch, seed=seed)
+
+    def to_device(batch) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(batch)).to(device)
+
+    train_loader, val_loader = loader("train", t.seed), loader("val",
+                                                               t.seed + 1)
+    print(f"train videos: {len(train_loader.dataset)}; "
+          f"val videos: {len(val_loader.dataset)}")
+
+    def save_mid_epoch(ep: int, batch_idx: int) -> None:
+        ckpt.save_step_unless_duplicate(
+            step_mgr,
+            ckpt.mid_epoch_step_id(ep, batch_idx, offset=iteration),
+            lambda: {"epoch": ep, "batch_idx": batch_idx, "net": m.network,
+                     "state_dict": model.state_dict(),
+                     "optimizer": opt.state_dict(), "best_acc": best_acc,
+                     "iteration": iteration})
+
+    guard = loop.PreemptionGuard().install() if step_mgr else None
     try:
-        for epoch in range(t.start_epoch, t.epochs):
-            loader.set_epoch(epoch)
-            sums: dict[str, float] = {}
-            n = 0
+        for epoch in range(start_epoch, t.epochs):
+            train_loader.set_epoch(epoch)
+            val_loader.set_epoch(epoch)
+
+            def train_dispatch(idx, batch, epoch=epoch):
+                def reseed():
+                    gen.manual_seed(loop.step_seed(t.seed, epoch, idx))
+
+                reseed()
+                return step(reseed, to_device(batch), gen)
+
+            def count_iteration(idx, metrics):
+                nonlocal iteration
+                iteration += 1
+
+            # a preemption during val persists the finished train epoch:
+            # resume then skips the train batches and lands in val
+            n_train = len(train_loader)
+            train_done = (min(n_train, args.steps_per_epoch)
+                          if args.steps_per_epoch else n_train)
+
+            def save_from_val(ep, _val_idx):
+                save_mid_epoch(ep, train_done - 1)
+
+            # the run's second train epoch: every step after its first
+            finish = (_profile_epoch(args.profile)
+                      if args.profile and epoch == start_epoch + 1 else None)
+            meters, vmeters = MetricBundle(), MetricBundle()
             t0 = time.perf_counter()
-            for idx, batch in enumerate(loader):
-                if args.steps_per_epoch and idx >= args.steps_per_epoch:
-                    break
-                x = torch.from_numpy(np.ascontiguousarray(batch)).to(device)
-                metrics = {k: float(v) for k, v in step(x, gen).items()}
-                for k, v in metrics.items():
-                    sums[k] = sums.get(k, 0.0) + v
-                n += 1
-                if idx % t.print_freq == 0:
-                    print(f"epoch {epoch} step {idx}: loss "
-                          f"{metrics['loss']:.4f} top1 {metrics['top1']:.4f}")
-            avg = {k: v / max(n, 1) for k, v in sums.items()}
-            print(f"epoch {epoch}: train loss {avg.get('loss', 0.0):.4f} "
-                  f"top1 {avg.get('top1', 0.0):.4f} ({n} steps, "
-                  f"{time.perf_counter() - t0:.1f} s)")
+            n = loop.run_epoch(
+                train_dispatch, train_loader, meters, mode="train",
+                print_freq=t.print_freq, epoch=epoch,
+                print_fn=count_iteration, max_steps=args.steps_per_epoch,
+                start_batch=start_batch if epoch == start_epoch else 0,
+                step_save_fn=save_mid_epoch if step_mgr else None,
+                save_every_steps=args.save_every_steps, guard=guard)
+            dt = time.perf_counter() - t0
+            if finish is not None:
+                finish(n, t.batch_size)
+            nv = loop.run_epoch(
+                lambda idx, batch: eval_step(to_device(batch)), val_loader,
+                vmeters, mode="val", print_freq=t.print_freq, epoch=epoch,
+                max_steps=args.steps_per_epoch,
+                step_save_fn=save_from_val if step_mgr else None,
+                guard=guard, train=False)
+            tr, va = meters.averages(), vmeters.averages()
+            print(f"epoch {epoch}: train loss {tr.get('loss', 0.0):.4f} "
+                  f"top1 {tr.get('top1', 0.0):.4f} ({n} steps, {dt:.1f} s) "
+                  f"| val loss {va.get('loss', 0.0):.4f} top1 "
+                  f"{va.get('top1', 0.0):.4f} ({nv} steps)", flush=True)
+            val_acc = va.get("top1", 0.0)
+            best_acc = max(best_acc, val_acc)
+            mgr.save(epoch + 1,
+                     {"epoch": epoch + 1, "net": m.network,
+                      "state_dict": model.state_dict(),
+                      "optimizer": opt.state_dict(), "best_acc": best_acc,
+                      "iteration": iteration},
+                     val_acc=val_acc)
     finally:
-        loader.close()
-    print(f"Training from ep {t.start_epoch} to ep {t.epochs} finished")
+        train_loader.close()
+        val_loader.close()
+        if guard is not None:
+            guard.uninstall()
+    print(f"Training from ep {start_epoch} to ep {t.epochs} finished")
 
 
 if __name__ == "__main__":

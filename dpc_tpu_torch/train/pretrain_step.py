@@ -1,8 +1,9 @@
-"""The DPC pretraining train step on one device (port of
-``dpc_tpu/train/pretrain_step.py:47-230``).
+"""The DPC pretraining train and validation steps on one device (port of
+``dpc_tpu/train/pretrain_step.py:47-316``).
 
 One step is forward, loss, backward and the Adam update, applied in place
-to the model's parameters.  Negatives are local: the device scores its own
+to the model's parameters; the validation step is the forward and the loss
+alone, without dropout.  Negatives are local: the device scores its own
 batch only, which is the reference's per-GPU pool (``dpc/main.py:180,212``).
 Under ``compute_dtype="bfloat16"`` the forward runs in bf16 autocast with
 f32 parameters; the ConvGRU input and the NCE inputs are f32, as in the
@@ -46,7 +47,6 @@ def _check_supported(train_cfg: TrainConfig) -> None:
          "queue 1 item 13 (multi-GPU)"),
         (train_cfg.device_augment, "--device_augment",
          "queue 1 item 12 (device augmentation)"),
-        (train_cfg.remat, "--remat", "queue 1 item 10 (pretrain CLI)"),
     ]
     for bad, flag, item in unsupported:
         if bad:
@@ -64,13 +64,13 @@ def make_pretrain_step(model_cfg: DPCConfig, train_cfg: TrainConfig,
     ``generator``: a ``torch.Generator`` on that device for the GRU
     dropout (None: no dropout).  Returns ``{loss, top1, top3, top5}`` as
     0-d tensors on the device; the parameters are updated in place.
+    ``train_cfg.remat`` recomputes the backbone's activations in the
+    backward (activation checkpointing; the backbone draws no dropout and
+    keeps no running statistics, so the recomputation is exact).
     """
     _check_supported(train_cfg)
     device = next(model.parameters()).device
-    use_fused = resolve_nce_impl(train_cfg, model_cfg, device) == "fused"
-    targets = torch.as_tensor(
-        nce.nce_targets(train_cfg.batch_size, model_cfg.pred_step,
-                        model_cfg.sq), device=device)
+    loss_fn = _nce_fn(model_cfg, train_cfg, device)
     bf16 = model_cfg.compute_dtype == "bfloat16"
     if model_cfg.compute_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"compute_dtype {model_cfg.compute_dtype!r}")
@@ -83,14 +83,58 @@ def make_pretrain_step(model_cfg: DPCConfig, train_cfg: TrainConfig,
         optimizer.zero_grad(set_to_none=True)
         with torch.autocast(device.type, dtype=torch.bfloat16, enabled=bf16):
             pred, gt = dpc.predict(model, batch, cfg=model_cfg, train=True,
-                                   generator=generator)
-        pred, gt = pred.float(), gt.float()
-        if use_fused:
-            loss, metrics = nce_cuda.fused_nce_loss(pred, gt, targets)
-        else:
-            loss, metrics = nce.nce_loss(nce.dense_score(pred, gt), targets)
+                                   generator=generator,
+                                   remat=train_cfg.remat)
+        loss, metrics = loss_fn(pred, gt)
         loss.backward()
         optimizer.step()
         return {"loss": loss.detach(), **metrics}
 
     return step
+
+
+def _nce_fn(model_cfg: DPCConfig, train_cfg: TrainConfig,
+            device: torch.device) -> Callable[..., tuple]:
+    """``loss_fn(pred, gt) -> (loss, {top1, top3, top5})`` over the local
+    batch, through the flash kernels or the materialised score as
+    ``resolve_nce_impl`` picks."""
+    use_fused = resolve_nce_impl(train_cfg, model_cfg, device) == "fused"
+    targets = torch.as_tensor(
+        nce.nce_targets(train_cfg.batch_size, model_cfg.pred_step,
+                        model_cfg.sq), device=device)
+
+    def loss_fn(pred, gt):
+        pred, gt = pred.float(), gt.float()
+        if use_fused:
+            return nce_cuda.fused_nce_loss(pred, gt, targets)
+        return nce.nce_loss(nce.dense_score(pred, gt), targets)
+
+    return loss_fn
+
+
+def make_eval_step(model_cfg: DPCConfig, train_cfg: TrainConfig,
+                   model: nn.Module) -> Callable[..., dict]:
+    """Validation: ``eval_step(batch) -> {loss, top1, top3, top5}``, the
+    forward and the loss under ``torch.no_grad()`` with no dropout
+    (reference ``validate``, ``dpc/main.py:249-282``).  It resolves the NCE
+    path as the train step does, so a run whose train steps fit does not
+    run out of memory in validation; ``fused`` runs the forward kernel
+    alone."""
+    _check_supported(train_cfg)
+    device = next(model.parameters()).device
+    loss_fn = _nce_fn(model_cfg, train_cfg, device)
+    bf16 = model_cfg.compute_dtype == "bfloat16"
+    if model_cfg.compute_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"compute_dtype {model_cfg.compute_dtype!r}")
+
+    @torch.no_grad()
+    def eval_step(batch: torch.Tensor) -> dict:
+        if batch.shape[0] != train_cfg.batch_size:
+            raise ValueError(f"batch of {batch.shape[0]} clips, config "
+                             f"says {train_cfg.batch_size}")
+        with torch.autocast(device.type, dtype=torch.bfloat16, enabled=bf16):
+            pred, gt = dpc.predict(model, batch, cfg=model_cfg, train=False)
+        loss, metrics = loss_fn(pred, gt)
+        return {"loss": loss, **metrics}
+
+    return eval_step

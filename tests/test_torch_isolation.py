@@ -1,6 +1,7 @@
 """dpc_tpu_torch stands alone: no module of it (nor chip_smoke.py) imports
-JAX or dpc_tpu, and its entry points refuse CUDA on a machine without a
-card instead of running on the CPU."""
+JAX, dpc_tpu, OpenCV, PIL or tensorboardX (the card's machine is not
+assumed to have them), and its entry points refuse CUDA on a machine
+without a card instead of running on the CPU."""
 
 import os
 import subprocess
@@ -14,7 +15,8 @@ ROOT = Path(__file__).resolve().parent.parent
 
 _PROBE = r"""
 import importlib, pkgutil, sys
-sys.modules["jax"] = None            # any `import jax` now raises
+for blocked in ("jax", "cv2", "PIL", "tensorboardX"):
+    sys.modules[blocked] = None      # any import of them now raises
 import dpc_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(dpc_tpu_torch.__path__,
                                                "dpc_tpu_torch.")]
@@ -23,9 +25,12 @@ for name in names:
 leaked = sorted(k for k in sys.modules
                 if k == "dpc_tpu" or k.startswith("dpc_tpu."))
 assert not leaked, leaked
-# the LC slice's modules, and the pool kernels' wrapper without nvcc
+# the LC slice's modules, the pool kernels' wrapper without nvcc, and the
+# frame pipeline, checkpoints and shared loop
 for name in ("models.lc", "ops.maxpool_cuda", "train.finetune_step",
-             "train.evaluate", "train.metrics"):
+             "train.evaluate", "train.metrics", "native", "data.augment",
+             "data.video_dataset", "data.frame_tree", "core.checkpoint",
+             "train.loop"):
     assert "dpc_tpu_torch." + name in names, name
 print(len(names))
 """
@@ -36,13 +41,14 @@ def test_port_imports_neither_jax_nor_dpc_tpu():
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 28   # every module was imported
+    assert int(out.stdout.strip()) >= 33   # every module was imported
 
 
 def test_chip_smoke_source_imports_no_jax():
     src = (ROOT / "chip_smoke.py").read_text()
     for bad in ("import jax", "from jax", "import dpc_tpu\n", "from dpc_tpu.",
-                "from dpc_tpu import"):
+                "from dpc_tpu import", "import cv2", "import PIL",
+                "from PIL", "tensorboardX"):
         assert bad not in src
 
 

@@ -85,7 +85,7 @@ def test_unported_options_raise():
     model = dpc.DPC(DPCConfig(**SHAPE))
     opt = optim.pretrain_optimizer(model, LR, WD)
     for bad in (dict(negatives="global"), dict(model_parallel=2),
-                dict(device_augment=True), dict(remat=True)):
+                dict(device_augment=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             pretrain_step.make_pretrain_step(
                 DPCConfig(**SHAPE), TrainConfig(batch_size=B, **bad),
@@ -107,7 +107,8 @@ def test_cli_runs_two_steps_on_cpu(tmp_path, capsys):
     assert math.isfinite(loss) and "(2 steps" in line[0]
     assert list(tmp_path.glob("*/config.json"))
     with pytest.raises(SystemExit, match="ROADMAP"):
-        pretrain.main(["--device", "cpu", "--dataset", "ucf101"])
+        pretrain.main(["--device", "cpu", "--dataset", "synthetic",
+                       "--device_augment"])
 
 
 def test_pretrain_loss_envelope_over_three_steps():
@@ -172,8 +173,9 @@ def test_finetune_cli_trains_validates_and_tests_on_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--dataset", "ucf101"], ["--resume", "run"], ["--pretrain", "dpc.pth"],
-    ["--test", "run"], ["--save_every_steps", "10"], ["--device_augment"],
+    ["--device_augment", "--test", "random"], ["--model_parallel", "2"],
+    ["--five_crop", "--test", "random"], ["--num_devices", "4"],
+    ["--multihost", "--test", "random"], ["--device_augment"],
     ["--five_crop"], ["--num_devices", "2"], ["--multihost"]])
 def test_finetune_cli_rejects_unported_flags(tmp_path, flag):
     args = ["--dataset", "synthetic", *flag]
