@@ -31,14 +31,25 @@ Phases, each printing its facts before the next starts:
               python -m dpc_tpu_torch.train.evaluate for 1 epoch of 2 steps
               plus val, then --test random on a few synthetic videos
   6. frames   both CLIs on a UCF-shaped tree of 320x240 JPEGs written with
-              the port's encoder (16 videos of 150 frames): the pretrain
-              flagship for 2 epochs with val, epoch and step checkpoints;
-              a mid-epoch resume from a step file alone and an epoch
+              the port's encoder (16 videos of 150 frames, 640 train
+              rows): with the host recipe, the pretrain flagship for 2
+              epochs of 2 steps with val, epoch and step checkpoints; a
+              mid-epoch resume from a step file alone and an epoch
               resume, each step's loss within 1e-3 of the uninterrupted
               run's; the finetune CLI from that run and the dense test of
-              the finetune run; then the CLI's clips/s and device busy
-              share in its second epoch, the loader alone in thread and
-              process mode, and one thread's decode and augment times
+              the finetune run; the CLI's clips/s and device busy share in
+              its second epoch, the loader alone in thread and process
+              mode, and one thread's decode and augment times.  Then
+              --device_augment: the device recipes on the card against
+              the CPU, the dense-test recipe against the host transform,
+              the ROI decode against the full decode; the pretrain
+              flagship for 2 epochs of 10 steps (clips/s, busy share and
+              nvJPEG's device time in the second), an epoch resume, the
+              same 2 epochs with process workers, the finetune CLI and the dense test plain, five-crop and with
+              the host recipe; the planned-decode fallbacks (0); the file
+              reads, the loader alone with the host half, one thread's
+              ROI decode, the H2D copy and its overlap, and the recipe's
+              time
 Then one JSON line of per-kernel results, the card's name and power limit,
 and a last line {"ok": true, "device": {...}}.  Any failure exits non-zero
 before the last line.  Without a CUDA device it exits 2 and prints no result.
@@ -65,6 +76,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -624,7 +636,8 @@ def _profile(fn, path: str | None, label: str) -> None:
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t1)
     events = [e for e in p.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     pool_ms = sum(e.self_device_time_total for e in events
                   if "pool" in e.key.lower()) / 1e3
@@ -912,7 +925,8 @@ def phase_cli() -> None:
                     "--steps_per_epoch", "2", "--num_workers", "4",
                     "--print_freq", "1"], "cli", PRETRAIN_KERNELS)
     line = [ln for ln in out.splitlines() if ln.startswith("epoch 0: train")]
-    expect(bool(line) and "(2 steps" in line[0], "CLI did not run 2 steps")
+    expect(bool(line) and "[epoch 0] 2 train steps" in out,
+           "CLI did not run 2 steps")
     loss = float(line[0].split("loss")[1].split()[0])
     expect(math.isfinite(loss), f"CLI loss {loss}")
 
@@ -921,11 +935,13 @@ def phase_cli() -> None:
                     "--epochs", "1", "--steps_per_epoch", "2",
                     "--num_workers", "4", "--print_freq", "1"],
                    "finetune cli", LC_KERNELS)
-    line = [ln for ln in out.splitlines() if ln.startswith("epoch 0: train")]
-    expect(bool(line) and "(2 steps" in line[0] and "val loss" in line[0],
+    line = [ln for ln in out.splitlines() if ln.startswith("[epoch 0] 2 ")]
+    expect(bool(line) and "val loss" in line[0],
            "finetune CLI did not run 2 steps and val")
-    losses = [float(part.split()[0]) for part in line[0].split("loss")[1:]]
-    expect(all(math.isfinite(v) for v in losses), f"finetune CLI {losses}")
+    losses = [float(part.split()[0].rstrip(";"))
+              for part in line[0].split("loss")[1:]]
+    expect(len(losses) == 2 and all(math.isfinite(v) for v in losses),
+           f"finetune CLI {losses}")
 
     out = _run_cli(evaluate.main,
                    ["--dataset", "synthetic", "--test", "random",
@@ -946,8 +962,16 @@ FRAMES_PRETRAIN = ["--net", "resnet18", "--img_dim", "128", "--num_seq", "8",
 FRAMES_LC = ["--net", "resnet18", "--img_dim", "128", "--num_seq", "8",
              "--seq_len", "5", "--batch_size", "64"]
 FRAMES_TREE = dict(num_videos=16, num_frames=150, height=240, width=320,
-                   num_classes=101, train_rows=128, test_rows=224)
+                   num_classes=101, train_rows=640, test_rows=224)
+# the host-recipe runs take 2 train steps an epoch; the --device_augment
+# pretrain run takes all 10 (its second epoch is the measured one)
+HOST_STEPS = ["--steps_per_epoch", "2"]
 RESUME_TOL = 1e-3  # relative gap of a resumed step's loss to the original
+AUG_TOL = 1e-5     # |card − CPU| of the device recipes after Normalize
+# the scaled ROI decode against the full decode + HostScaleCrop's float
+# resize, in levels (max, mean): nvJPEG resamples the full frame in 16.16
+# fixed point; libjpeg resamples its DCT-scaled frame
+ROI_SCALED_TOL = {"nvjpeg": (2, 0.6), "libjpeg": (8, 1.0)}
 
 
 def _train_losses(out: str) -> dict:
@@ -977,8 +1001,365 @@ def _loader_rate(ds, batch: int, workers: int, mode: str, n_batches: int,
                     break
             epoch += 1
     finally:
-        loader.close()
+        loader.close(wait=True)  # the next measurement wants the cores
     return (n_batches - warm) * batch / (stamps[-1] - stamps[warm])
+
+
+def check_device_augment(paths, img_dim: int, device: str = "cuda") -> None:
+    """The device half of --device_augment on the card against the same
+    functions on the CPU with the same draws (the gathers bit-equal, the
+    recipes within AUG_TOL after Normalize); the dense-test recipe on the
+    card against the host's test transform on the same decoded frames
+    (1e-6, Normalize's fused form); and the ROI decode against the full
+    decode plus HostScaleCrop's numpy path with the same plan: bit-equal
+    at scale 1, within ROI_SCALED_TOL levels at short side 128 (the codec
+    resamples in 16.16 fixed point, the numpy path in float)."""
+    import torch
+    from dpc_tpu_torch import native
+    from dpc_tpu_torch.data import augment
+    from dpc_tpu_torch.data import device_augment as da
+
+    dev = torch.device(device)
+    gen = torch.Generator().manual_seed(0)
+    b, n, sl = 4, 8, 5
+    f = n * sl
+
+    def same(name, cpu, card, tol):
+        card = card.cpu()
+        exact = torch.equal(cpu, card)
+        err = float((cpu.double() - card.double()).abs().max())
+        log(f"[augment] {name}: card against CPU, max |diff| {err:.3e}"
+            + (" (bit-equal)" if exact else ""))
+        expect(exact if tol == 0 else err <= tol,
+               f"device augment {name}: card and CPU differ by {err}")
+
+    for h, w in ((224, 224), (240, 320)):
+        clips = torch.randint(0, 256, (b, n, sl, h, w, 3), generator=gen,
+                              dtype=torch.uint8)
+        flat = clips.reshape(b, f, h, w, 3)
+        on = clips.to(dev)
+        flip = torch.rand(b, generator=gen) < 0.5
+        same(f"resize_fixed {h}x{w}", da.resize_fixed(flat, img_dim, flip),
+             da.resize_fixed(on.reshape(b, f, h, w, 3), img_dim,
+                             flip.to(dev)), 0)
+        same(f"center_crop_resize {h}x{w}",
+             da.center_crop_resize(flat, 224, img_dim),
+             da.center_crop_resize(on.reshape(b, f, h, w, 3), 224, img_dim),
+             0)
+        for five in (False, True):
+            same(f"test_preprocess_batch {h}x{w} five_crop={five}",
+                 da.test_preprocess_batch(clips, img_dim, 224, five, False),
+                 da.test_preprocess_batch(on, img_dim, 224, five, False), 0)
+        for recipe in ("crop_resize", "sized_crop"):
+            d = da.draw_pretrain(gen, b, f, h, w, recipe)
+            x = da.resize_fixed(flat, img_dim) / 255.0
+            same(f"random_gray {h}x{w}",
+                 da.random_gray(x, d.gray, d.gray_chan),
+                 da.random_gray(x.to(dev), d.gray.to(dev),
+                                d.gray_chan.to(dev)), 0)
+            for norm in (False, True):
+                same(f"augment_batch {recipe} {h}x{w} normalize={norm}",
+                     da.augment_batch(clips, d, img_dim, recipe, norm),
+                     da.augment_batch(on, d.to(dev), img_dim, recipe, norm),
+                     AUG_TOL)
+        for mode in ("train", "val"):
+            d = da.draw_finetune(gen, b, h, w, mode)
+            same(f"finetune_augment_batch {mode} {h}x{w}",
+                 da.finetune_augment_batch(clips, d, img_dim, mode),
+                 da.finetune_augment_batch(on, d.to(dev), img_dim, mode),
+                 AUG_TOL)
+
+    # the dense-test recipe: ROI-decoded centre windows on the card, the
+    # host transform on full decodes (and five crops of the full frames)
+    buffers = [Path(p).read_bytes() for p in paths[:f]]
+    src_hw = native.jpeg_dims(buffers[0])
+    frames, fails = native.decode_jpeg_batch(buffers, *src_hw)
+    one = np.stack([native.decode_jpeg(x) for x in buffers])
+    d = np.abs(frames.astype(np.int64) - one)
+    log(f"[augment] batched full decode ({native.batch_backend()}) against "
+        f"one frame at a time ({native.backend()}): max |diff| {d.max()}, "
+        f"mean {d.mean():.4f} levels")
+    expect(fails == 0 and d.mean() < 1.0,
+           f"the batched decode is off the per-frame one: {d.mean()}")
+    plan = augment.HostScaleCrop(240, (224, 224), center=True).plan(
+        src_hw, None)
+    windows, fails = native.decode_jpeg_batch_scale_crop(buffers, *plan)
+    expect(fails == 0, f"{fails} centre windows did not decode")
+    for five, src in ((False, windows), (True, frames)):
+        host = augment.finetune_transform(img_dim, "test", five_crop=five)(
+            frames)
+        card = da.test_preprocess_batch(
+            torch.from_numpy(src).to(dev).reshape(1, n, sl, *src.shape[1:]),
+            img_dim, 224, five_crop=five).cpu().numpy()
+        err = float(np.abs(card.reshape(host.shape) - host).max())
+        log(f"[augment] dense-test recipe on the card against the host "
+            f"transform, five_crop={five}: max |diff| {err:.2e}")
+        expect(err <= 1e-6, f"dense-test recipe off by {err}")
+
+    # the ROI decode against the full decode and the numpy geometry
+    for short, win in ((240, (224, 224)), (128, (128, 128))):
+        host = augment.HostScaleCrop(short, win)
+        plan = host.plan(src_hw, np.random.default_rng(short))
+        got, fails = native.decode_jpeg_batch_scale_crop(buffers, *plan)
+        want = host(frames, np.random.default_rng(short))
+        d = np.abs(got.astype(np.int64) - want)
+        log(f"[augment] ROI decode ({native.batch_backend()}) short {short} "
+            f"plan "
+            f"{plan[1]} against full decode + HostScaleCrop: max |diff| "
+            f"{d.max()}, mean {d.mean():.4f} levels")
+        expect(fails == 0 and got.shape == want.shape, "ROI decode failed")
+        if short == 240:
+            expect(d.max() == 0, "ROI decode at scale 1 is not bit-equal")
+        else:
+            tmax, tmean = ROI_SCALED_TOL[native.backend()]
+            expect(d.max() <= tmax and d.mean() <= tmean,
+                   f"ROI decode at short {short}: {d.max()}, {d.mean()}")
+
+
+def _copy_overlap(device, n: int = 6) -> dict:
+    """The --device_augment pretrain flagship step (uint8 224² windows,
+    the recipe on the card) alone, the pinned host-to-device copy of its
+    B64 batch alone, and both as the CLI runs them (the copy of batch i+1
+    on a side stream while step i computes); and the recipe's own time
+    (CUDA events).  The copy overlaps when the pair costs about a step."""
+    import torch
+    from dpc_tpu_torch.core.config import DPCConfig, TrainConfig
+    from dpc_tpu_torch.data import device_augment as da
+    from dpc_tpu_torch.models import dpc
+    from dpc_tpu_torch.train import loop, optim, pretrain_step
+
+    cfg = DPCConfig(compute_dtype="bfloat16", gru_impl="pallas")
+    tcfg = TrainConfig(batch_size=64, nce_impl="fused", device_augment=True,
+                       device_augment_recipe="crop_resize")
+    model = dpc.build_dpc(cfg, device, seed=0)
+    step = pretrain_step.make_pretrain_step(
+        cfg, tcfg, model, optim.pretrain_optimizer(model, 1e-3, 1e-5))
+    gen = torch.Generator(device=device).manual_seed(1)
+    aug = torch.Generator().manual_seed(2)
+    host = torch.randint(0, 256, (64, cfg.num_seq, cfg.seq_len, 224, 224, 3),
+                         dtype=torch.uint8).pin_memory()
+    feed = loop.DeviceFeed(device)
+    on = feed(host)
+
+    def timed(fn) -> float:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / n
+
+    out = {"step_ms": timed(lambda: step(on, gen, aug)),
+           "copy_ms": timed(lambda: feed(host)),
+           "step_and_copy_ms": timed(lambda: step(feed(host), gen, aug))}
+    out["copy_overlaps"] = (out["step_and_copy_ms"]
+                            < out["step_ms"] + 0.5 * out["copy_ms"])
+    draws = da.draw_pretrain(aug, 64, cfg.num_seq * cfg.seq_len, 224, 224,
+                             "crop_resize").to(device)
+    out["augment_ms"] = cuda_ms(lambda: da.augment_batch(
+        on, draws, cfg.img_dim, "crop_resize"), iters=10)
+    log(f"[frames] --device_augment step on device-resident uint8: "
+        f"{out['step_ms']:.1f} ms; H2D copy of the B64 batch "
+        f"({host.numel() / 2**20:.0f} MiB, pinned): {out['copy_ms']:.1f} "
+        f"ms; both as the CLI queues them: {out['step_and_copy_ms']:.1f} "
+        f"ms/step (copy overlaps: {out['copy_overlaps']}); the recipe "
+        f"alone: {out['augment_ms']:.2f} ms/step (CUDA events)")
+    return out
+
+
+def _codec_ms(profile: Path) -> tuple[float, int, dict]:
+    """nvJPEG's device time in a CLI's --profile window: kernels that do
+    not belong to the step, by name (the step's are torch's, cuDNN's,
+    cuBLAS's and the port's)."""
+    rec = json.loads(Path(str(profile) + ".json").read_text())
+    kernels = sorted(rec["kernels_ms"].items(), key=lambda kv: -kv[1])
+    codec = {k: v for k, v in kernels
+             if re.search(r"jpeg|idct|huff|ycbcr|yuv|color_?conv", k, re.I)}
+    for k, v in kernels[:15]:
+        log(f"[frames] profile kernel {v:9.3f} ms  {k[:110]}")
+    return sum(codec.values()), rec["steps"], codec
+
+
+def _frames_device_augment(tmp: Path, data, pre_args, lc_args, paths,
+                           workers: int, device: str) -> dict:
+    """--device_augment on the same tree: the pretrain CLI at the flagship
+    for 2 epochs of 10 steps (clips/s and busy share over its second
+    epoch, nvJPEG's device time from its --profile), an epoch resume that
+    reruns step (1, 0), the same 2 epochs with process workers, the
+    finetune CLI from the first run, the dense test of
+    the finetune run plain, with --five_crop, and with the host recipe;
+    the planned-decode fallbacks (0 expected); the loader alone with the
+    host half; one thread's ROI decode; the copy and the recipe on the
+    card."""
+    import torch
+    from dpc_tpu_torch import native
+    from dpc_tpu_torch.train import evaluate, loop, pretrain
+
+    aug = ["--device_augment"]
+    rates = {}
+    fallbacks = []  # each run's count, from its "[feed]" line
+
+    def run(main, argv, what, kernels, log_dir=None) -> str:
+        out = _run_cli(main, argv, what, kernels, log_dir=log_dir)
+        found = re.findall(r"^\[feed\] planned-decode fallbacks: "
+                           r"\{'unplanned': (\d+), 'undecoded': (\d+)\}",
+                           out, re.M)
+        expect(bool(found), f"{what} printed no planned-decode fallbacks")
+        fallbacks.extend(int(a) + int(b) for a, b in found)
+        return out
+
+    log_dir = tmp / "da_pretrain"
+    log_dir.mkdir()
+    snap = tmp / "da_epoch"
+
+    def run_dir(d: Path) -> Path:
+        (run,) = [p for p in d.iterdir() if p.is_dir()]
+        return run
+
+    def snap_epoch():  # before step (1, 0): the epoch-1 file
+        (snap / "model").mkdir(parents=True)
+        shutil.copy(run_dir(log_dir) / "model" / "epoch1.pth.tar",
+                    snap / "model")
+
+    hooks = {(1, 0): snap_epoch}
+    real_seed = loop.step_seed
+
+    def hooked_seed(seed, epoch, idx, *stream):
+        hook = hooks.pop((epoch, idx), None)
+        if hook is not None:
+            hook()
+        return real_seed(seed, epoch, idx, *stream)
+
+    profile = tmp / "da_profile.txt"
+    loop.step_seed = hooked_seed
+    try:
+        out = run(pretrain.main, [
+            *data, *pre_args, *aug, "--epochs", "2", "--profile",
+            str(profile)], "da pretrain", PRETRAIN_KERNELS, log_dir=log_dir)
+    finally:
+        loop.step_seed = real_seed
+    expect(not hooks, "the epoch-checkpoint hook did not run")
+    vals = [ln for ln in out.splitlines()
+            if re.match(r"epoch \d: train loss", ln) and "| val loss" in ln]
+    expect(len(vals) == 2, "the --device_augment pretrain CLI printed no "
+                           "val line in each of its two epochs")
+    losses = _train_losses(out)
+    expect(len(losses) >= 16 and all(math.isfinite(v)
+                                     for v in losses.values()),
+           f"--device_augment pretrain losses {losses}")
+    busy = re.search(r"\[profile\] (\d+) train steps: wall (\S+) ms, "
+                     r"(\S+) clips/s, device busy (\S+) ms \((\S+)%\)", out)
+    expect(busy is not None and int(busy.group(1)) >= 8,
+           "the --device_augment CLI profiled fewer than 8 steps")
+    rates["da_cli_clips_per_s"] = float(busy.group(3))
+    rates["da_cli_busy_pct"] = float(busy.group(5))
+    if device == "cuda":
+        codec_ms, steps, _ = _codec_ms(profile)
+        rates["nvjpeg_device_ms_per_step"] = codec_ms / steps
+        log(f"[frames] nvJPEG kernels: {codec_ms:.1f} ms of device time "
+            f"over {steps} steps = {codec_ms / steps:.2f} ms/step, of "
+            f"{float(busy.group(4)) / steps:.1f} ms/step busy")
+
+    out = run(pretrain.main, [
+        *data, *pre_args, *aug, "--resume", str(snap), "--epochs", "2",
+        "--steps_per_epoch", "1"], "da resume epoch", ("nce_fwd",))
+    got = _train_losses(out)
+    expect("resumed epoch 1" in out and list(got) == [(1, 0)],
+           f"the --device_augment epoch resume ran steps {list(got)}")
+    gap = abs(got[(1, 0)] - losses[(1, 0)]) / abs(losses[(1, 0)])
+    rates["da_resume_gap"] = gap
+    log(f"[frames] --device_augment epoch resume: step (1, 0) loss "
+        f"{got[(1, 0)]:.6f} against {losses[(1, 0)]:.6f} uninterrupted, "
+        f"relative gap {gap:.2e}")
+    expect(gap <= RESUME_TOL, f"--device_augment resume gap {gap:.2e}")
+
+    # the same run with process workers (their fallbacks stay in the
+    # workers, so this run's "[feed]" line is not counted)
+    out = _run_cli(pretrain.main, [
+        *data, *pre_args, *aug, "--epochs", "2", "--worker_mode", "process",
+        "--profile", str(tmp / "da_profile_process.txt")],
+        "da pretrain process workers", PRETRAIN_KERNELS,
+        log_dir=tmp / "da_process")
+    busy = re.search(r"\[profile\] (\d+) train steps: wall \S+ ms, "
+                     r"(\S+) clips/s, device busy \S+ ms \((\S+)%\)", out)
+    expect(busy is not None and int(busy.group(1)) >= 8,
+           "the process-worker CLI profiled fewer than 8 steps")
+    rates["da_cli_process_clips_per_s"] = float(busy.group(2))
+    rates["da_cli_process_busy_pct"] = float(busy.group(3))
+
+    ft_dir = tmp / "da_finetune"
+    out = run(evaluate.main, [
+        *data, *lc_args, *aug, "--epochs", "1", "--steps_per_epoch", "4",
+        "--pretrain", str(run_dir(log_dir))], "da finetune", LC_KERNELS,
+        log_dir=ft_dir)
+    expect("[transfer_load] loaded" in out and any(
+        ln.startswith("epoch 0: train top1") and "| val top1" in ln
+        for ln in out.splitlines()), "the --device_augment finetune CLI "
+                                    "did not train and validate")
+    test_loss = {}
+    for name, extra in (("da", aug), ("da five_crop", [*aug, "--five_crop"]),
+                        ("host", [])):
+        out = (run if extra else _run_cli)(evaluate.main, [
+            *data, *lc_args, *extra, "--test", str(run_dir(ft_dir)),
+            "--split", "2"], f"test {name}",
+            ("convgru_fwd", "maxpool_relu_fwd"))
+        line = [ln for ln in out.splitlines() if ln.startswith("[test] loss")]
+        expect(bool(line) and "16 videos" in out, f"test {name}: no result")
+        test_loss[name] = float(line[0].split()[2].rstrip(";"))
+    gap = abs(test_loss["da"] - test_loss["host"]) / abs(test_loss["host"])
+    log(f"[frames] dense test of the --device_augment finetune run: loss "
+        f"{test_loss} (card recipe, stem fold, against the host recipe: "
+        f"relative gap {gap:.2e})")
+    expect(all(math.isfinite(v) for v in test_loss.values()) and gap <= 5e-2,
+           f"the dense test's card and host recipes disagree: {test_loss}")
+    rates["planned_fallbacks"] = sum(fallbacks)
+    log(f"[frames] planned-decode fallbacks over the {len(fallbacks)} "
+        f"--device_augment runs: {rates['planned_fallbacks']}")
+    expect(rates["planned_fallbacks"] == 0,
+           f"the planned decode fell back: {fallbacks}")
+
+    # the file system: the frame tree is one file a frame
+    tree = sorted(Path(data[data.index("--data_root") + 1]).glob(
+        "ucf101/frame/*/*/*.jpg"))
+    for w in (1, workers):
+        with ThreadPoolExecutor(w) as pool:
+            t0 = time.perf_counter()
+            list(pool.map(lambda p: len(p.read_bytes()), tree))
+            rates[f"file_reads_per_s_{w}_threads"] = (
+                len(tree) / (time.perf_counter() - t0))
+        log(f"[frames] reading the tree's {len(tree)} frame files with {w} "
+            f"thread(s): {rates[f'file_reads_per_s_{w}_threads']:.0f} "
+            f"files/s")
+
+    # the host half alone
+    batch = int(pre_args[pre_args.index("--batch_size") + 1])
+    ds = pretrain.get_dataset(pretrain.config_from_args(
+        pretrain.build_parser().parse_args([*data, *pre_args, *aug])),
+        "train")
+    for mode, n, warm in (("thread", 6, 1), ("process", 6, 2)):
+        key = f"da_loader_{mode}_clips_per_s"
+        rates[key] = _loader_rate(ds, batch, workers, mode, n, warm)
+        log(f"[frames] loader alone with the host half, {mode} mode, "
+            f"{workers} workers, B={batch}, batches {warm + 1}-{n}: "
+            f"{rates[key]:.2f} clips/s")
+    buffers = [Path(p).read_bytes() for p in paths]
+    plan = ds.transform.plan(native.jpeg_dims(buffers[0]),
+                             np.random.default_rng(0))
+    t0 = time.perf_counter()
+    _, fails = native.decode_jpeg_batch_scale_crop(buffers, *plan, threads=1)
+    rates["roi_decode_ms_per_frame"] = (
+        1e3 * (time.perf_counter() - t0) / len(buffers))
+    expect(fails == 0, "ROI decode failed")
+    log(f"[frames] one thread: ROI decode {plan} of one video's "
+        f"{len(buffers)} frames in one call "
+        f"{rates['roi_decode_ms_per_frame']:.3f} ms/frame "
+        f"({native.batch_backend()}); --device_augment train CLI "
+        f"{rates['da_cli_clips_per_s']:.2f} clips/s in its second epoch, "
+        f"device busy {rates['da_cli_busy_pct']:.1f}%")
+    if device == "cuda":
+        rates.update(_copy_overlap(torch.device(device)))
+    return rates
 
 
 def phase_frames(pre_args=FRAMES_PRETRAIN, lc_args=FRAMES_LC,
@@ -1006,8 +1387,10 @@ def phase_frames(pre_args=FRAMES_PRETRAIN, lc_args=FRAMES_LC,
             f"{(res.stdout + res.stderr).strip() or '(nothing)'}")
     t0 = time.perf_counter()
     log(f"[frames] JPEG codec: {native.backend()} "
-        f"(built in {time.perf_counter() - t0:.1f} s); cpu_count {workers}")
-    rates = {"cpu_count": workers, "backend": native.backend()}
+        f"(built in {time.perf_counter() - t0:.1f} s), batched decodes "
+        f"{native.batch_backend()}; cpu_count {workers}")
+    rates = {"cpu_count": workers, "backend": native.backend(),
+             "batch_backend": native.batch_backend()}
     with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
         tmp = Path(tmp)
         t0 = time.perf_counter()
@@ -1055,19 +1438,19 @@ def phase_frames(pre_args=FRAMES_PRETRAIN, lc_args=FRAMES_LC,
         hooks = {(0, 1): snap_mid, (1, 0): snap_epoch}
         real_seed = loop.step_seed
 
-        def hooked_seed(seed, epoch, idx):
+        def hooked_seed(seed, epoch, idx, *stream):
             hook = hooks.pop((epoch, idx), None)
             if hook is not None:
                 hook()
-            return real_seed(seed, epoch, idx)
+            return real_seed(seed, epoch, idx, *stream)
 
         profile = tmp / "profile.txt"
         loop.step_seed = hooked_seed
         try:
             out = _run_cli(pretrain.main, [
-                *data, *pre_args, "--epochs", "2", "--save_every_steps", "1",
-                "--profile", str(profile)], "frames pretrain",
-                PRETRAIN_KERNELS, log_dir=log_dir)
+                *data, *pre_args, *HOST_STEPS, "--epochs", "2",
+                "--save_every_steps", "1", "--profile", str(profile)],
+                "frames pretrain", PRETRAIN_KERNELS, log_dir=log_dir)
         finally:
             loop.step_seed = real_seed
         expect(not hooks, f"the checkpoint hooks did not all run: {hooks}")
@@ -1092,7 +1475,8 @@ def phase_frames(pre_args=FRAMES_PRETRAIN, lc_args=FRAMES_LC,
 
         gaps = {}
         for name, argv, key, line in (
-                ("mid-epoch", ["--epochs", "1", "--save_every_steps", "1"],
+                ("mid-epoch", ["--epochs", "1", "--save_every_steps", "1",
+                               *HOST_STEPS],
                  (0, 1), "resumed mid-epoch: epoch 0 batch 1"),
                 ("epoch", ["--epochs", "2", "--steps_per_epoch", "1"],
                  (1, 0), "resumed epoch 1")):
@@ -1111,10 +1495,10 @@ def phase_frames(pre_args=FRAMES_PRETRAIN, lc_args=FRAMES_LC,
 
         ft_dir = tmp / "finetune"
         out = _run_cli(evaluate.main, [
-            *data, *lc_args, "--epochs", "1", "--pretrain", str(run_dir())],
-            "frames finetune", LC_KERNELS, log_dir=ft_dir)
+            *data, *lc_args, *HOST_STEPS, "--epochs", "1", "--pretrain",
+            str(run_dir())], "frames finetune", LC_KERNELS, log_dir=ft_dir)
         expect("[transfer_load] loaded" in out and any(
-            ln.startswith("epoch 0: train") and "| val loss" in ln
+            ln.startswith("epoch 0: train") and "| val top1" in ln
             for ln in out.splitlines()), "the finetune CLI did not train "
                                         "from the pretrain run and validate")
         (ft_run,) = [p for p in ft_dir.iterdir() if p.is_dir()]
@@ -1156,6 +1540,10 @@ def phase_frames(pre_args=FRAMES_PRETRAIN, lc_args=FRAMES_LC,
             f"{rates['augment_ms_per_clip']:.1f} ms/clip of {clip_len} "
             f"frames; train CLI {rates['cli_clips_per_s']:.2f} clips/s in "
             f"its second epoch, device busy {rates['cli_busy_pct']:.1f}%")
+        if device == "cuda":
+            check_device_augment(paths, img_dim)
+        rates.update(_frames_device_augment(
+            tmp, data, pre_args, lc_args, paths, workers, device))
     return rates
 
 

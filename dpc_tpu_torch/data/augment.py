@@ -12,9 +12,11 @@ follow its pixel-centre conventions (``INTER_LINEAR`` / ``INTER_NEAREST``),
 ``cv2.LUT`` is a numpy gather, and the hue shift rewrites OpenCV's uint8
 ``COLOR_RGB2HSV_FULL`` / ``COLOR_HSV2RGB_FULL`` round trip (fixed-point
 forward, float32 back).  The bilinear blend and the float32 hue sector may
-round one grey level the other way.  Not ported: ``RandomRotation`` (no
-recipe uses it), ``FiveCrop``/``PerCrop`` and the ``--device_augment`` host
-half ``HostScaleCrop``.
+round one grey level the other way.  Also ``FiveCrop``, ``PadTo`` and
+``PerCrop`` (the five-crop dense test) and ``HostScaleCrop``, the host half
+of ``--device_augment``, which the JPEG codec can execute inside the decode
+(``native.decode_jpeg_batch_scale_crop``).  Not ported: ``RandomRotation``
+(no recipe uses it).
 """
 
 from __future__ import annotations
@@ -111,8 +113,8 @@ def _crop(clip, y, x, th, tw):
 
 
 class CenterCrop:
-    def __init__(self, size: int):
-        self.size = (size, size)
+    def __init__(self, size):
+        self.size = (size, size) if isinstance(size, (int, float)) else size
 
     def __call__(self, clip, rng):
         t, h, w, c = clip.shape
@@ -146,6 +148,56 @@ class RandomCrop:
             y1 = int(rng.integers(0, h - th + 1))
             out[i] = clip[i, y1: y1 + th, x1: x1 + tw]
         return out
+
+
+class FiveCrop:
+    """The four corners and the centre → ``[5, T, size, size, C]`` (the
+    eval dataset's five-crop test, ``eval/dataset_3d_lc.py:98-107``)."""
+
+    def __init__(self, size):
+        self.size = (size, size) if isinstance(size, (int, float)) else size
+
+    def __call__(self, clip, rng=None):
+        t, h, w, c = clip.shape
+        th, tw = self.size
+        if th > h or tw > w:
+            raise ValueError(f"five crops of {self.size} from a "
+                             f"{h}x{w} clip")
+        cx = int(round((w - tw) / 2.0))
+        cy = int(round((h - th) / 2.0))
+        corners = [(0, 0), (0, w - tw), (h - th, 0), (h - th, w - tw),
+                   (cy, cx)]
+        return np.stack([_crop(clip, y, x, th, tw) for y, x in corners])
+
+
+class PadTo:
+    """Reflect-pad so the clip is at least (min_h, min_w): a safety net
+    ahead of fixed-size crops for portrait videos."""
+
+    def __init__(self, min_h: int, min_w: int):
+        self.min_h, self.min_w = min_h, min_w
+
+    def __call__(self, clip, rng=None):
+        t, h, w, c = clip.shape
+        ph, pw = max(0, self.min_h - h), max(0, self.min_w - w)
+        if not (ph or pw):
+            return clip
+        return np.pad(clip, ((0, 0), (ph // 2, ph - ph // 2),
+                             (pw // 2, pw - pw // 2), (0, 0)),
+                      mode="reflect")
+
+
+class PerCrop:
+    """Apply an op to each crop of a multi-crop ``[K, T, H, W, C]`` clip
+    (the ops after :class:`FiveCrop` in a recipe)."""
+
+    def __init__(self, op):
+        self.op = op
+
+    def __call__(self, clip, rng=None):
+        if clip.ndim == 4:
+            return self.op(clip, rng)
+        return np.stack([self.op(c, rng) for c in clip])
 
 
 class RandomCropWithProb:
@@ -452,17 +504,69 @@ def frame_consistent(transform) -> bool:
     """True when the transform maps every frame of a clip the same way
     (every draw per clip, or no draw), so a frame's output does not depend
     on the frames beside it: the precondition of the dense test's
-    decode-each-frame-once path.  Unknown ops count as not consistent."""
+    decode-each-frame-once path.  Containers recurse into their ops;
+    unknown ops count as not consistent."""
     if isinstance(transform, Compose):
         return all(frame_consistent(op) for op in transform.ops)
+    if isinstance(transform, PerCrop):
+        return frame_consistent(transform.op)
+    if isinstance(transform, HostScaleCrop):
+        return all(frame_consistent(op) for op in (
+            transform._scale, transform._pad, transform._crop))
     if hasattr(transform, "consistent"):
         return bool(transform.consistent)
-    return isinstance(transform, (Padding, Scale, CenterCrop, Normalize))
+    return isinstance(transform, (Padding, Scale, CenterCrop, FiveCrop,
+                                  PadTo, Normalize))
 
 
 # ---------------------------------------------------------------------------
 # Recipes (dpc/main.py:115-133, eval/test.py:121-126,161-176)
 # ---------------------------------------------------------------------------
+
+class HostScaleCrop:
+    """The host half of ``--device_augment``: ``Scale(short)`` →
+    ``PadTo(win)`` → a consistent ``RandomCrop(win)`` (or ``CenterCrop``
+    with ``center=True``, the dense test's), as one op the JPEG codec runs
+    inside the decode (``native.decode_jpeg_batch_scale_crop``: only the
+    pixels that feed the window are decoded).
+
+    :meth:`plan` returns the (short side, crop) the codec needs, drawing
+    the window with ``RandomCrop``'s rng calls (x, then y), or None when the
+    scaled frame is smaller than the window (portrait frames that need the
+    reflect pad: the numpy ``__call__`` handles those).  ``__call__`` runs
+    the same geometry on decoded frames, the scale bilinear."""
+
+    def __init__(self, short: int, win_hw: tuple[int, int],
+                 center: bool = False):
+        self.short = short
+        self.win_h, self.win_w = win_hw
+        self.center = center
+        self._scale = Scale(short, interpolation="bilinear")
+        self._pad = PadTo(*win_hw)
+        self._crop = (CenterCrop(win_hw) if center
+                      else RandomCrop(win_hw, consistent=True))
+
+    def scaled_dims(self, h: int, w: int) -> tuple[int, int]:
+        return shortside_dims(h, w, self.short)
+
+    def plan(self, src_hw: tuple[int, int], rng
+             ) -> Optional[tuple[int, tuple[int, int, int, int]]]:
+        oh, ow = self.scaled_dims(*src_hw)
+        if oh < self.win_h or ow < self.win_w:
+            return None
+        if self.center:  # CenterCrop's rounding (round-half-even)
+            x1 = int(round((ow - self.win_w) / 2.0))
+            y1 = int(round((oh - self.win_h) / 2.0))
+        else:
+            x1 = int(rng.integers(0, ow - self.win_w + 1))
+            y1 = int(rng.integers(0, oh - self.win_h + 1))
+        return self.short, (y1, x1, self.win_h, self.win_w)
+
+    def __call__(self, clip, rng):
+        clip = self._scale(clip, rng)
+        clip = self._pad(clip, rng)
+        return self._crop(clip, rng)
+
 
 def pretrain_transform(dataset: str, img_dim: int) -> Compose:
     if dataset in ("ucf101", "hmdb51", "synthetic"):
@@ -485,9 +589,17 @@ def pretrain_transform(dataset: str, img_dim: int) -> Compose:
     raise ValueError(f"no pretrain recipe for {dataset!r}")
 
 
-def finetune_transform(img_dim: int, mode: str = "train") -> Compose:
-    """The LC recipes; the five-crop test recipe is not ported (ROADMAP
-    queue 1 item 12)."""
+def finetune_transform(img_dim: int, mode: str = "train",
+                       five_crop: bool = False) -> Compose:
+    """The LC recipes.  ``five_crop`` in test mode: the reference's five
+    crops at 224 (``eval/dataset_3d_lc.py:98-107``), each scaled to
+    ``img_dim``; the crops ride the window axis of the softmax average."""
+    if five_crop and mode == "test":
+        return Compose([
+            FiveCrop(224),
+            PerCrop(Scale(size=(img_dim, img_dim))),
+            Normalize(),
+        ])
     if mode == "train":
         return Compose([
             RandomSizedCrop(size=224),

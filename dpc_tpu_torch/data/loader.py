@@ -2,10 +2,11 @@
 
 The reference keeps chips fed with 32 DataLoader *processes* serialising
 tensors through pipes (``dpc/main.py:307-321``).  Here decode + augment run
-in a thread pool (numpy releases the GIL for the hot work), batches are
-assembled into pinned numpy arrays, and a bounded queue keeps
-``prefetch_batches`` of them ready ahead of the training loop, which
-copies each batch to the device as it is consumed.
+in a thread pool (numpy releases the GIL for the hot work), each worker
+copies its sample into the batch's buffer (pinned host memory when the
+batches go to a card), and a bounded queue keeps ``prefetch_batches`` of
+them ready ahead of the training loop, which copies each batch to the
+device as it is consumed.
 
 Determinism: one root seed → per-(epoch, position) sample RNGs, so a run
 is reproducible regardless of worker count — unlike the reference, whose
@@ -38,20 +39,59 @@ def _proc_sample(task):
     return _WORKER_DATASET.sample(index, np.random.default_rng(seed))
 
 
+class _Batch:
+    """One batch being filled in place, sample by sample; the buffer is
+    made at the first sample's shape (in pinned memory with ``pin``)."""
+
+    def __init__(self, size: int, pin: bool):
+        self.size = size
+        self.pin = pin
+        self.clips = None
+        self.labels = np.zeros(size, np.int32)
+        self.has_labels = False
+        self._lock = threading.Lock()
+
+    def put(self, slot: int, item) -> None:
+        clip = item[0] if isinstance(item, tuple) else item
+        with self._lock:
+            if self.clips is None:
+                shape = (self.size, *clip.shape)
+                if self.pin:
+                    import torch  # only a card's feed pins
+
+                    self.clips = torch.empty(
+                        shape, dtype=torch.from_numpy(clip[:0]).dtype,
+                        pin_memory=True)
+                else:
+                    self.clips = np.empty(shape, clip.dtype)
+        # the copies of several workers run at once (numpy drops the
+        # interpreter lock while it copies)
+        target = self.clips.numpy() if self.pin else self.clips
+        target[slot] = clip
+        if isinstance(item, tuple):
+            self.labels[slot] = item[1]
+            self.has_labels = True
+
+    def result(self):
+        return (self.clips, self.labels) if self.has_labels else self.clips
+
+
 class ClipLoader:
     """Iterate minibatches of a clip dataset.
 
     dataset: anything with ``__len__`` and
     ``sample(index, rng) -> clip | (clip, label)``.
-    Yields float32 ``[B, N, SL, H, W, C]`` batches (plus int32 labels when
-    the dataset returns them).
+    Yields ``[B, N, SL, H, W, C]`` batches in the dataset's dtype (plus
+    int32 labels when the dataset returns them): numpy arrays, or torch
+    tensors in pinned host memory with ``pin_memory``, which a card then
+    copies without a host sync.
     """
 
     def __init__(self, dataset, batch_size: int, *, shuffle: bool = True,
                  drop_last: bool = True, num_workers: int = 8,
                  prefetch_batches: int = 4, seed: int = 0,
                  shard_id: int = 0, num_shards: int = 1,
-                 worker_mode: str = "thread"):
+                 worker_mode: str = "thread", pin_memory: bool = False):
         """``batch_size`` is PER SHARD (per host).  ``shard_id/num_shards``
         give each host a disjoint slice of the same seeded permutation —
         the multi-host ingest contract (every host must draw the same
@@ -77,6 +117,7 @@ class ClipLoader:
         self.num_shards = num_shards
         assert worker_mode in ("thread", "process"), worker_mode
         self.worker_mode = worker_mode
+        self.pin_memory = pin_memory
         self._proc_pool: ProcessPoolExecutor | None = None
 
     def _process_pool(self) -> ProcessPoolExecutor:
@@ -90,9 +131,12 @@ class ClipLoader:
                 initializer=_proc_init, initargs=(self.dataset,))
         return self._proc_pool
 
-    def close(self) -> None:
+    def close(self, wait: bool = False) -> None:
+        """Shut the process pool down; ``wait`` also waits for the clips
+        its workers are still making (a measurement that follows wants
+        the cores back)."""
         if self._proc_pool is not None:
-            self._proc_pool.shutdown(wait=False, cancel_futures=True)
+            self._proc_pool.shutdown(wait=wait, cancel_futures=True)
             self._proc_pool = None
 
     def __del__(self):  # best-effort; close() is the real API
@@ -127,6 +171,12 @@ class ClipLoader:
     def iterate(self, start_batch: int = 0) -> Iterator:
         """Iterate from ``start_batch`` of this epoch's deterministic order
         (mid-epoch resume support: no data is loaded for skipped batches).
+
+        Each sample is copied into its batch's buffer by the worker that
+        made it (in thread mode; the producer does it for process
+        workers), and the next batch's samples are queued before this
+        batch is waited for, so the workers never idle while a batch is
+        assembled.
         """
         order = self._order()
         n = len(order)
@@ -136,42 +186,54 @@ class ClipLoader:
         out_q: queue.Queue = queue.Queue(
             maxsize=max(1, self.prefetch_batches))
         stop = threading.Event()
+        in_flight: list = []  # the futures of the batches being made
 
         def load_one(pos: int):
             rng = np.random.default_rng((self.seed, self.epoch, pos))
             return self.dataset.sample(int(order[pos]), rng)
 
-        def produce_batches(load_batch):
-            for b in range(start_batch, nb):
+        def fill(batch: _Batch, slot: int, pos: int) -> None:
+            batch.put(slot, load_one(pos))
+
+        def produce_batches(submit):
+            """``submit(batch, slot, pos)`` queues one sample and returns
+            its future, whose result is the item or None once in place."""
+            def start(b):
                 lo = b * self.batch_size
                 hi = min(lo + self.batch_size, n)
-                items = load_batch(lo, hi)
+                batch = _Batch(hi - lo, self.pin_memory)
+                return batch, [submit(batch, slot, pos)
+                               for slot, pos in enumerate(range(lo, hi))]
+
+            nxt = start(start_batch) if start_batch < nb else None
+            for b in range(start_batch, nb):
+                batch, futures = nxt
+                nxt = start(b + 1) if b + 1 < nb else None
+                in_flight[:] = futures + (nxt[1] if nxt else [])
+                if stop.is_set():
+                    # the consumer stopped early (a capped epoch,
+                    # preemption): it never waits for these batches
+                    for f in in_flight:
+                        f.cancel()
+                for slot, f in enumerate(futures):
+                    item = f.result()
+                    if item is not None:  # a process worker's sample
+                        batch.put(slot, item)
                 if stop.is_set():
                     return
-                if isinstance(items[0], tuple):
-                    clips = np.stack([it[0] for it in items])
-                    labels = np.asarray([it[1] for it in items], np.int32)
-                    out_q.put((clips, labels))
-                else:
-                    out_q.put(np.stack(items))
+                out_q.put(batch.result())
 
         def producer():
             try:
                 if self.worker_mode == "process":
                     pool = self._process_pool()
-
-                    def load_batch(lo, hi):
-                        tasks = [(int(order[p]),
-                                  (self.seed, self.epoch, p))
-                                 for p in range(lo, hi)]
-                        return list(pool.map(_proc_sample, tasks))
-
-                    produce_batches(load_batch)
+                    produce_batches(lambda batch, slot, pos: pool.submit(
+                        _proc_sample, (int(order[pos]),
+                                       (self.seed, self.epoch, pos))))
                 else:
                     with ThreadPoolExecutor(self.num_workers) as pool:
-                        produce_batches(
-                            lambda lo, hi:
-                            list(pool.map(load_one, range(lo, hi))))
+                        produce_batches(lambda batch, slot, pos: pool.submit(
+                            fill, batch, slot, pos))
             except Exception as e:  # surface worker errors to the consumer
                 out_q.put(e)
             finally:
@@ -189,6 +251,8 @@ class ClipLoader:
                 yield item
         finally:
             stop.set()
+            for f in list(in_flight):
+                f.cancel()
             # drain so the producer can finish putting and exit
             while t.is_alive():
                 try:

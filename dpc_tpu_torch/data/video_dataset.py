@@ -13,13 +13,19 @@ Kept from ``dpc_tpu``:
   * the val split is the TEST split, 30% subsampled with seed 666;
   * labels from ``classInd.txt``, 0-based;
   * test mode: every frame, non-overlapping ``seq_len`` blocks, windows of
-    ``num_seq`` blocks (stride N/2 on UCF, 3N/4 on HMDB;
+    ``num_seq`` blocks (stride N/2 on UCF, 3N/4 on HMDB's plain test;
     ``eval/dataset_3d_lc.py:76-78,109-125``), each unique frame decoded
-    once.
+    once; ``keep_short_test`` keeps videos shorter than one clip as one
+    padded window (PARITY.md #10);
+  * the ``unit_test`` subsample of 32 videos (``dpc/dataset_3d.py:85``);
+  * the planned decode of ``--device_augment``: a transform with a
+    ``plan`` (``augment.HostScaleCrop``) runs inside the JPEG decode.
 
-Not ported: the planned ROI decode of ``--device_augment`` (ROADMAP queue 1
-item 12).  A frame the codec cannot decode raises: there is no second
-decoder to fall back to.
+Where the plan cannot run (a portrait frame that needs padding, a frame
+the ROI decode rejects), the sample falls back to the full decode and the
+transform's numpy path; :func:`planned_fallbacks` counts those samples.  A
+frame the codec cannot decode at all raises: there is no second decoder to
+fall back to.
 """
 
 from __future__ import annotations
@@ -35,6 +41,20 @@ from dpc_tpu_torch import native
 from dpc_tpu_torch.core import shapes
 from dpc_tpu_torch.data import augment
 from dpc_tpu_torch.data.augment import Compose
+
+
+def count_fallbacks(*datasets) -> Optional[dict[str, int]]:
+    """The planned-decode fallbacks of the datasets that plan (None when
+    none does), summed by reason."""
+    planned = [d for d in datasets if hasattr(d.transform, "plan")
+               and hasattr(d, "planned_fallbacks")]
+    if not planned:
+        return None
+    counts = {"unplanned": 0, "undecoded": 0}
+    for d in planned:
+        for k, v in d.planned_fallbacks().items():
+            counts[k] += v
+    return counts
 
 
 def load_frame(path: str,
@@ -84,6 +104,7 @@ class FrameClipDataset:
                  window_stride: Optional[int] = None,
                  class_names: Optional[dict[int, str]] = None,
                  decode_threads: int = 4,
+                 keep_short_test: bool = False,
                  tail_window: bool = False):
         self.transform = transform
         self.decode_threads = decode_threads
@@ -95,13 +116,27 @@ class FrameClipDataset:
         self.window_stride = window_stride or max(1, num_seq // 2)
         self.class_names = class_names or {}
         self.tail_window = tail_window
+        # one reason per sample that fell back from the planned decode
+        # (list.append is atomic, so thread workers need no lock)
+        self._fallbacks: list[str] = []
         span = shapes.clip_span(num_seq, seq_len, downsample)
         # the reference drops too-short videos from every split, test
-        # included (eval/dataset_3d_lc.py:61-67)
-        self.records = [r for r in records if r.num_frames > span]
+        # included (eval/dataset_3d_lc.py:61-67); keep_short_test keeps
+        # them in the test split as one padded window (PARITY.md #10)
+        if mode == "test" and keep_short_test:
+            self.records = [r for r in records if r.num_frames > 0]
+        else:
+            self.records = [r for r in records if r.num_frames > span]
 
     def __len__(self) -> int:
         return len(self.records)
+
+    def planned_fallbacks(self) -> dict[str, int]:
+        """Samples of a plan-capable transform decoded in full instead:
+        ``unplanned`` (the plan declined the frame size), ``undecoded``
+        (the ROI decode failed a frame)."""
+        return {k: self._fallbacks.count(k)
+                for k in ("unplanned", "undecoded")}
 
     def _frame_path(self, record: VideoRecord, idx: int) -> str:
         return os.path.join(record.path, f"image_{idx + 1:05d}.jpg")
@@ -130,25 +165,38 @@ class FrameClipDataset:
     def sample(self, index: int, rng: np.random.Generator):
         """Load + transform one item.
 
-        train/val: ``[N, SL, H, W, 3]`` float32 (plus int label when
-        ``return_label``).  test: ``[num_windows, N, SL, H, W, 3]``.
+        train/val: ``[N, SL, H, W, 3]`` (plus int label when
+        ``return_label``).  test: ``[num_windows, N, SL, H, W, 3]``, the
+        crops of a multi-crop transform riding the window axis.
         """
         record = self.records[index]
+        planned = hasattr(self.transform, "plan")
         if self.mode == "test":
             windows = shapes.test_time_windows(
                 record.num_frames, self.num_seq, self.seq_len,
                 self.downsample, self.window_stride,
                 tail_window=self.tail_window)
-            if augment.frame_consistent(self.transform):
-                # decode and transform each unique frame once; the inverse
-                # gather restores the windows' frame order exactly
-                flat = np.minimum(windows.reshape(-1), record.num_frames - 1)
-                uniq, inverse = np.unique(flat, return_inverse=True)
-                frames = self._load_frames(record, uniq)
-                clip = np.take(self.transform(frames, rng), inverse, axis=0)
-            else:
-                clip = self.transform(self._load_frames(record, windows),
-                                      rng)
+            # decode and transform each unique frame once (the windows
+            # overlap); valid for a frame-consistent transform, which the
+            # dense-test recipes are; the inverse gather restores the
+            # windows' frame order exactly
+            flat = np.minimum(windows.reshape(-1), record.num_frames - 1)
+            uniq, inverse = np.unique(flat, return_inverse=True)
+            clip = None
+            if planned:  # a plan is per clip, so the dedupe is exact
+                clip = self._load_frames_planned(record, uniq, rng)
+                if clip is not None:
+                    clip = clip[inverse]
+            if clip is None:
+                if augment.frame_consistent(self.transform):
+                    # plain transforms return [U, h, w, c], multi-crop
+                    # ones [k, U, h, w, c]: gather on the frame axis
+                    clip = np.take(self.transform(
+                        self._load_frames(record, uniq), rng), inverse,
+                        axis=-4)
+                else:
+                    clip = self.transform(self._load_frames(record, windows),
+                                          rng)
             h, w, c = clip.shape[-3:]
             clip = clip.reshape(-1, self.num_seq, self.seq_len, h, w, c)
             return (clip, record.label) if self.return_label else clip
@@ -161,10 +209,41 @@ class FrameClipDataset:
                              "are too few for one clip")
         indices = shapes.clip_block_indices(start, self.num_seq,
                                             self.seq_len, self.downsample)
-        clip = self.transform(self._load_frames(record, indices), rng)
+        clip = (self._load_frames_planned(record, indices, rng)
+                if planned else None)
+        if clip is None:
+            clip = self.transform(self._load_frames(record, indices), rng)
         h, w, c = clip.shape[-3:]
         clip = clip.reshape(self.num_seq, self.seq_len, h, w, c)
         return (clip, record.label) if self.return_label else clip
+
+    def _load_frames_planned(self, record: VideoRecord, indices: np.ndarray,
+                             rng: np.random.Generator
+                             ) -> Optional[np.ndarray]:
+        """Run a plan-capable transform (``augment.HostScaleCrop``) inside
+        one batch ROI decode: the plan is made from the first frame's
+        header (the frames of a video share their size) before the other
+        frames are read.  Returns None, counted, where the full decode and
+        the numpy path must take over; that path draws afresh, which is
+        fine: any consistent window is a valid sample."""
+        flat = np.minimum(indices.reshape(-1), record.num_frames - 1)
+        with open(self._frame_path(record, int(flat[0])), "rb") as f:
+            first = f.read()
+        plan = self.transform.plan(native.jpeg_dims(first), rng)
+        if plan is None:
+            self._fallbacks.append("unplanned")
+            return None
+        buffers = [first]
+        for i in flat[1:]:
+            with open(self._frame_path(record, int(i)), "rb") as f:
+                buffers.append(f.read())
+        short, crop = plan
+        out, failures = native.decode_jpeg_batch_scale_crop(
+            buffers, short, crop, threads=self.decode_threads)
+        if failures:
+            self._fallbacks.append("undecoded")
+            return None
+        return out
 
 
 def _subsample(records: list[VideoRecord], frac: float,
@@ -193,8 +272,10 @@ def _labelled_records(rows: list[tuple[str, int]],
 def make_dataset(dataset: str, data_root: str, mode: str,
                  transform: Compose, *, num_seq: int = 8, seq_len: int = 5,
                  downsample: int = 3, split: int = 1, big: bool = False,
-                 return_label: bool = False, val_subsample: float = 0.3,
-                 tail_window: bool = False) -> FrameClipDataset:
+                 return_label: bool = False, unit_test: bool = False,
+                 val_subsample: float = 0.3, keep_short_test: bool = False,
+                 tail_window: bool = False,
+                 five_crop: bool = False) -> FrameClipDataset:
     """The ucf101 / hmdb51 / k400 split conventions.
 
     ucf101/hmdb51: ``{root}/{name}/{train|test}_split{split:02d}.csv``
@@ -224,12 +305,17 @@ def make_dataset(dataset: str, data_root: str, mode: str,
     records = _labelled_records(rows, encode)
     if mode == "val" and val_subsample < 1.0:
         records = _subsample(records, val_subsample)
+    if unit_test:
+        records = _subsample(records, min(1.0, 32 / max(len(records), 1)))
     names = {v: k for k, v in encode.items()}
-    # dense-test window stride: N/2 on UCF, 3N/4 on HMDB's plain test
-    # (eval/dataset_3d_lc.py:119,124 vs :249,254)
-    window_stride = 3 * num_seq // 4 if dataset == "hmdb51" else num_seq // 2
+    # dense-test window stride: N/2 on UCF and in the multi-crop test, 3N/4
+    # on HMDB's plain test (eval/dataset_3d_lc.py:119,124 vs :249,254)
+    window_stride = (3 * num_seq // 4
+                     if dataset == "hmdb51" and not five_crop
+                     else num_seq // 2)
     return FrameClipDataset(records, transform, num_seq=num_seq,
                             seq_len=seq_len, downsample=downsample,
                             mode=mode, return_label=return_label,
                             window_stride=window_stride, class_names=names,
+                            keep_short_test=keep_short_test,
                             tail_window=tail_window)

@@ -58,14 +58,19 @@ def _predictor(model: DPC, h: torch.Tensor) -> torch.Tensor:
 
 
 def encode_blocks(model: DPC, x: torch.Tensor, cfg: DPCConfig,
-                  remat: bool = False) -> torch.Tensor:
+                  remat: bool = False,
+                  input_norm: Optional[tuple] = None) -> torch.Tensor:
     """``[B, N, SL, H, W, 3]`` → PRE-ReLU ``[B, N, ls, ls, D]`` (f32).
     ``remat`` recomputes the backbone's activations in the backward
-    (activation checkpointing) instead of keeping them."""
+    (activation checkpointing) instead of keeping them; ``input_norm``
+    folds the input's normalize into the stem conv (``x`` un-normalised,
+    ``layers.conv3d_input_norm``)."""
     b, n, sl, h, w, c = x.shape
     x = x.reshape(b * n, sl, h, w, c)
-    feat = (checkpoint.checkpoint(model.backbone, x, use_reentrant=False)
-            if remat and torch.is_grad_enabled() else model.backbone(x))
+    feat = (checkpoint.checkpoint(model.backbone, x, input_norm,
+                                  use_reentrant=False)
+            if remat and torch.is_grad_enabled()
+            else model.backbone(x, input_norm))
     if feat.shape[1] != cfg.last_duration:
         raise ValueError(f"backbone time extent {feat.shape[1]} != "
                          f"{cfg.last_duration}")
@@ -76,15 +81,18 @@ def encode_blocks(model: DPC, x: torch.Tensor, cfg: DPCConfig,
 
 def predict(model: DPC, x: torch.Tensor, *, cfg: DPCConfig,
             train: bool = True, generator: Optional[torch.Generator] = None,
-            remat: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+            remat: bool = False, input_norm: Optional[tuple] = None
+            ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(pred, gt)``, both ``[B, P, ls, ls, D]``: the embeddings the score
     is computed from.  GRU dropout is drawn from ``generator`` (none
-    without one); ``remat`` checkpoints the backbone."""
+    without one); ``remat`` checkpoints the backbone; with ``input_norm``
+    the frames are un-normalised and the stem conv normalises them."""
     if x.ndim != 6:
         raise ValueError("apply_dpc expects [B, num_seq, seq_len, H, W, 3] "
                          f"(6-D, channels-last); got shape {tuple(x.shape)}")
     ctx = x.shape[1] - cfg.pred_step
-    feature_pre = encode_blocks(model, x, cfg, remat=remat)
+    feature_pre = encode_blocks(model, x, cfg, remat=remat,
+                                input_norm=input_norm)
     gt = feature_pre[:, ctx:]                       # pre-ReLU
     feature = F.relu(feature_pre)                   # GRU input
     _, last_states = convgru.apply_convgru(
@@ -131,10 +139,12 @@ def extract_context(model: nn.Module, x: torch.Tensor, *, cfg: DPCConfig,
 
 
 def apply_dpc(model: DPC, x: torch.Tensor, *, cfg: DPCConfig,
-              train: bool = True, generator: Optional[torch.Generator] = None
+              train: bool = True, generator: Optional[torch.Generator] = None,
+              input_norm: Optional[tuple] = None
               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Full DPC forward: ``(score [B·P·SQ, B·P·SQ] f32, pred, gt)``."""
-    pred, gt = predict(model, x, cfg=cfg, train=train, generator=generator)
+    pred, gt = predict(model, x, cfg=cfg, train=train, generator=generator,
+                       input_norm=input_norm)
     with torch.autocast(x.device.type, enabled=False):
         score = nce.dense_score(pred.float(), gt.float())
     return score, pred, gt

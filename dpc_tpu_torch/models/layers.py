@@ -20,6 +20,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -34,6 +35,46 @@ def conv3d(in_ch: int, out_ch: int, kernel, stride=1, padding=0) -> nn.Conv3d:
                      bias=False)
     nn.init.kaiming_normal_(conv.weight, mode="fan_out", nonlinearity="relu")
     return conv
+
+
+def compute_dtype(device: torch.device) -> torch.dtype:
+    """The dtype a conv computes in here: autocast's when it is on."""
+    if torch.is_autocast_enabled(device.type):
+        return torch.get_autocast_dtype(device.type)
+    return torch.float32
+
+
+def conv3d_input_norm(conv: nn.Conv3d, x: torch.Tensor,
+                      input_norm: tuple) -> torch.Tensor:
+    """``conv((x/scale − mean)/std)`` computed from the un-normalised
+    NCDHW ``x``: the per-channel normalize folded into the conv (port of
+    ``dpc_tpu/models/layers.py:106``).
+
+    With ``input_norm = (mean, std, scale)``, linearity gives
+    ``conv(W/(s·σ), x) − conv(W/(s·σ), s·m·𝟙)``, 𝟙 ones inside the frame
+    and zero in the padding, so the correction is the same scaled weights
+    over a constant one-frame field (exact at the zero-padded borders,
+    where a constant bias would not be), computed in f32.  With scale 255,
+    uint8 windows feed the stem: they are cast to the compute dtype here
+    (uint8 is exact in bf16), not left to autocast.  Equal to
+    normalise-then-conv to rounding."""
+    mean, std, scale = input_norm
+    mean = np.asarray(mean, np.float32)
+    inv = torch.as_tensor(1.0 / (np.asarray(std, np.float32)
+                                 * np.float32(scale)), device=x.device)
+    if conv.kernel_size[0] != 1 or conv.padding[0] != 0:
+        raise ValueError("the input-norm fold needs a temporally local, "
+                         "temporally unpadded stem conv")
+    w = conv.weight * inv.view(1, -1, 1, 1, 1)
+    if not x.is_floating_point():
+        x = x.to(compute_dtype(x.device))
+    y = F.conv3d(x, w, conv.bias, conv.stride, conv.padding)
+    # the correction is constant along T: one frame of the mean field
+    field = torch.as_tensor(mean * np.float32(scale), device=x.device)
+    field = field.view(1, -1, 1, 1, 1).expand(1, len(mean), 1, *x.shape[-2:])
+    with torch.autocast(x.device.type, enabled=False):
+        corr = F.conv3d(field, w.float(), None, conv.stride, conv.padding)
+    return y - corr.to(y.dtype)
 
 
 def conv2d(in_ch: int, out_ch: int, kernel: int) -> nn.Conv2d:

@@ -65,7 +65,8 @@ def running_stats(model: nn.Module) -> dict[str, torch.Tensor]:
 
 
 def apply_lc(model: LC, x: torch.Tensor, *, cfg: DPCConfig,
-             train: bool = True, generator: Optional[torch.Generator] = None
+             train: bool = True, generator: Optional[torch.Generator] = None,
+             input_norm: Optional[tuple] = None
              ) -> tuple[torch.Tensor, torch.Tensor, dict[str, torch.Tensor]]:
     """Forward.  x: ``[B, N, SL, H, W, 3]`` → (logits ``[B, 1, C]``,
     context ``[B, 1, D]``, running stats).
@@ -75,10 +76,13 @@ def apply_lc(model: LC, x: torch.Tensor, *, cfg: DPCConfig,
     statistics).  The GRU dropout and then the head dropout are drawn from
     ``generator``; without one there is no dropout.  The head runs in f32
     outside autocast, as the JAX head computes in the f32 of its input.
+    ``input_norm=(mean, std, scale)``: ``x`` is un-normalised ([0, 1] f32
+    or raw uint8) and the stem conv normalises it
+    (``layers.conv3d_input_norm``).
     """
     model.train(train)
     b, n, sl, h, w, c = x.shape
-    feat = model.backbone(x.reshape(b * n, sl, h, w, c))
+    feat = model.backbone(x.reshape(b * n, sl, h, w, c), input_norm)
     feat = F.relu(feat).float().mean(dim=1)        # ReLU before the pool
     ls = cfg.last_size
     feat = feat.reshape(b, n, ls, ls, cfg.feature_size)

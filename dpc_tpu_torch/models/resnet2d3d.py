@@ -9,13 +9,17 @@ pre-activation embedding.
 
 The stem is the literal conv → BN → ReLU → max-pool; the pool runs
 ``layers.relu_maxpool_stem`` with ``stem_pool_impl`` ("auto": the CUDA
-kernels on the card).  ``track_running_stats=True`` builds the LC
+kernels on the card).  ``input_norm`` folds the input's normalize into the
+stem conv (``layers.conv3d_input_norm``, the ``--fold_normalize`` of
+``--device_augment``).  ``track_running_stats=True`` builds the LC
 classifier's backbone (``eval/model_3d_lc.py:26-28``).  Module names are the
 reference's (``conv1``, ``bn1``, ``layerL.B.{conv,bn}{i}``,
 ``layerL.B.downsample.{0,1}``).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -142,11 +146,16 @@ class ResNet2d3d(nn.Module):
             setattr(self, f"layer{si + 1}", nn.Sequential(
                 *[Block(spec, track_running_stats) for spec in stage]))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                input_norm: Optional[tuple] = None) -> torch.Tensor:
+        """``input_norm=(mean, std, scale)``: ``x`` is un-normalised, [0, 1]
+        f32 (scale 1) or raw uint8 (scale 255), and the normalize is
+        folded into the stem conv."""
         # NDHWC → NCDHW is a view with channels_last_3d strides
         h = x.permute(0, 4, 1, 2, 3)
-        h = L.relu_maxpool_stem(self.bn1(self.conv1(h)),
-                                self.stem_pool_impl)
+        h = (self.conv1(h) if input_norm is None
+             else L.conv3d_input_norm(self.conv1, h, input_norm))
+        h = L.relu_maxpool_stem(self.bn1(h), self.stem_pool_impl)
         for si in range(4):
             h = getattr(self, f"layer{si + 1}")(h)
         return h.permute(0, 2, 3, 4, 1)

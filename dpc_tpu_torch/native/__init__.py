@@ -8,12 +8,16 @@ sources with the same C ABI (``jpeg_common.h``):
   * ``jpeg_libjpeg.cpp`` where libjpeg's headers are installed: the
     decode of ``dpc_tpu/native/jpeg_decoder.cpp``, pixel for pixel;
   * ``jpeg_nvjpeg.cpp`` where they are not and the CUDA toolkit has
-    nvJPEG: entropy decode on the host, IDCT on the GPU, the pixels copied
-    back to host memory.
+    nvJPEG: one frame at a time on the hybrid backend (entropy decode on
+    the host, IDCT on the GPU), and the batched decodes in one
+    ``nvjpegDecodeBatched`` call on the card's hardware JPEG engines where
+    it has them; the pixels are copied back to host memory.
 
 There is no OpenCV or PIL chain: when neither library builds, the first
 call raises with the compiler's message.  Exposes :func:`decode_file`,
 :func:`decode_jpeg`, the pthread batch decode :func:`decode_jpeg_batch`,
+the scale-and-crop (ROI) decodes of ``--device_augment``'s host half
+:func:`decode_jpeg_scale_crop` and :func:`decode_jpeg_batch_scale_crop`,
 :func:`jpeg_dims` and the encoder :func:`encode_jpeg`, which writes frame
 trees (the port's counterpart of ``dpc_tpu/data/preprocess.py``'s frame
 extraction).
@@ -106,6 +110,8 @@ def _load() -> ctypes.CDLL:
         u8 = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
         lib.dpc_jpeg_backend.argtypes = []
         lib.dpc_jpeg_backend.restype = ctypes.c_char_p
+        lib.dpc_jpeg_batch_backend.argtypes = []
+        lib.dpc_jpeg_batch_backend.restype = ctypes.c_char_p
         lib.dpc_jpeg_init.argtypes = []
         lib.dpc_jpeg_init.restype = ctypes.c_int
         lib.dpc_jpeg_dims.argtypes = [
@@ -121,6 +127,14 @@ def _load() -> ctypes.CDLL:
             np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
             ctypes.c_int, u8, ctypes.c_int32, ctypes.c_int32, ctypes.c_int]
         lib.dpc_jpeg_decode_batch.restype = ctypes.c_int
+        lib.dpc_jpeg_decode_scale_crop.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64, u8, *[ctypes.c_int32] * 5]
+        lib.dpc_jpeg_decode_scale_crop.restype = ctypes.c_int
+        lib.dpc_jpeg_decode_batch_scale_crop.argtypes = [
+            ctypes.POINTER(ctypes.c_char_p),
+            np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+            ctypes.c_int, u8, *[ctypes.c_int32] * 5, ctypes.c_int]
+        lib.dpc_jpeg_decode_batch_scale_crop.restype = ctypes.c_int
         lib.dpc_jpeg_encode.argtypes = [
             u8, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, u8,
             ctypes.c_int64]
@@ -137,6 +151,13 @@ def _load() -> ctypes.CDLL:
 def backend() -> str:
     """'libjpeg' or 'nvjpeg': the library this machine built."""
     return _load().dpc_jpeg_backend().decode()
+
+
+def batch_backend() -> str:
+    """What runs the batched decodes: 'pthread' (libjpeg, a thread pool),
+    'hardware' (nvJPEG on the card's JPEG engines) or 'hybrid' (nvJPEG's
+    hybrid backend, one batched call)."""
+    return _load().dpc_jpeg_batch_backend().decode()
 
 
 def jpeg_dims(data: bytes) -> tuple[int, int]:
@@ -176,6 +197,40 @@ def decode_jpeg_batch(buffers: Sequence[bytes], th: int, tw: int,
     lens = np.asarray([len(b) for b in buffers], np.int64)
     out = np.empty((n, th, tw, 3), np.uint8)
     failures = lib.dpc_jpeg_decode_batch(arr, lens, n, out, th, tw, threads)
+    return out, int(failures)
+
+
+def decode_jpeg_scale_crop(data: bytes, short_side: int,
+                           crop_yxhw: tuple[int, int, int, int]
+                           ) -> np.ndarray:
+    """Short-side scale to ``short_side`` and the crop ``(y, x, h, w)`` of
+    the scaled image, fused into the decode.  Raises ValueError on corrupt
+    input or a crop outside the scaled image."""
+    cy, cx, ch, cw = crop_yxhw
+    out = np.empty((ch, cw, 3), np.uint8)
+    rc = _load().dpc_jpeg_decode_scale_crop(data, len(data), out, short_side,
+                                            cy, cx, ch, cw)
+    if rc != 0:
+        raise ValueError("scale_crop decode failed" if rc == 1
+                         else "crop outside scaled image")
+    return out
+
+
+def decode_jpeg_batch_scale_crop(buffers: Sequence[bytes], short_side: int,
+                                 crop_yxhw: tuple[int, int, int, int],
+                                 threads: int = 4
+                                 ) -> tuple[np.ndarray, int]:
+    """:func:`decode_jpeg_scale_crop` of N frames sharing one window (the
+    consistent-augmentation contract) with a pthread pool; returns
+    (``[N, h, w, 3]``, #failures), the failed frames zeroed."""
+    cy, cx, ch, cw = crop_yxhw
+    lib = _load()
+    n = len(buffers)
+    arr = (ctypes.c_char_p * n)(*buffers)
+    lens = np.asarray([len(b) for b in buffers], np.int64)
+    out = np.empty((n, ch, cw, 3), np.uint8)
+    failures = lib.dpc_jpeg_decode_batch_scale_crop(
+        arr, lens, n, out, short_side, cy, cx, ch, cw, threads)
     return out, int(failures)
 
 

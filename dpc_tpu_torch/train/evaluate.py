@@ -13,8 +13,13 @@ state_dict name), the ``--remat`` retry when the first step runs out of
 device memory, and ``--test <run dir | .pth.tar | random>``, the dense
 test of ``run_test`` (every video cut into windows, windows pooled into a
 fixed ``--window_batch``, softmax averaged per video, top-1/top-5, the
-confusion matrix).  Device augmentation, five-crop and several devices
-raise (ROADMAP queue 1 items 12 and 13).
+confusion matrix), with ``--five_crop`` (four corners and the centre, the
+crops riding the window axis), ``--test_keep_short`` and ``--unit_test``.
+``--device_augment`` moves the recipes to the device: the host half
+decodes uint8 windows (the scale and crop inside the JPEG decode), the
+finetune and val recipes run in the steps and the test recipe in the test
+forward, whose normalize ``--fold_normalize`` auto folds into the stem
+conv.  Several devices raise (ROADMAP queue 1 item 13).
 
 Usage:
   python -m dpc_tpu_torch.train.evaluate --dataset synthetic --epochs 1 \
@@ -22,7 +27,7 @@ Usage:
   python -m dpc_tpu_torch.train.evaluate --dataset ucf101 --data_root DIR \
       --pretrain <pretrain run dir> --train_what ft --epochs 300
   python -m dpc_tpu_torch.train.evaluate --dataset ucf101 --data_root DIR \
-      --test <finetune run dir>
+      --test <finetune run dir> --device_augment --five_crop
 """
 
 from __future__ import annotations
@@ -42,6 +47,8 @@ from dpc_tpu_torch.core.config import (DataConfig, DPCConfig, EvalConfig,
                                        ExperimentConfig, TrainConfig,
                                        resolve_device)
 from dpc_tpu_torch.data import augment
+from dpc_tpu_torch.data.device_augment import (dense_test_crop,
+                                               device_augment_geometry)
 from dpc_tpu_torch.data.loader import ClipLoader
 from dpc_tpu_torch.data.synthetic import SyntheticVideoDataset
 from dpc_tpu_torch.data.video_dataset import make_dataset
@@ -100,6 +107,8 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["thread", "process"])
     p.add_argument("--seed", default=0, type=int)
     p.add_argument("--synthetic_videos", default=32, type=int)
+    p.add_argument("--unit_test", action="store_true",
+                   help="32-video subsample for smoke runs")
     p.add_argument("--steps_per_epoch", default=0, type=int,
                    help="cap train and val steps per epoch (0 = full epoch)")
     p.add_argument("--log_dir", default="log_eval")
@@ -109,15 +118,30 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--save_every_steps", default=0, type=int,
                    help="mid-epoch checkpoint interval (0 = per-epoch "
                         "only); resume continues from the exact batch")
+    p.add_argument("--test_keep_short", action="store_true",
+                   help="evaluate videos shorter than one clip span as one "
+                        "padded window instead of dropping them like the "
+                        "reference (PARITY.md #10)")
     p.add_argument("--test_tail_window", action="store_true",
                    help="append a final tail window so trailing frames are "
                         "evaluated (the reference strides only)")
     p.add_argument("--window_batch", default=0, type=int,
                    help="dense-test pooled window rows per forward "
                         "(0 = 8)")
-    p.add_argument("--five_crop", action="store_true")
+    p.add_argument("--five_crop", action="store_true",
+                   help="dense test with the four corners and the centre; "
+                        "the crops ride the window axis of the softmax "
+                        "average")
     p.add_argument("--multihost", action="store_true")
-    p.add_argument("--device_augment", action="store_true")
+    p.add_argument("--device_augment", action="store_true",
+                   help="host workers decode uint8 windows only; the "
+                        "finetune, val and test recipes run on the device "
+                        "(with --five_crop a test forward takes 5x "
+                        "--window_batch rows)")
+    p.add_argument("--fold_normalize", default="auto",
+                   choices=["auto", "on", "off"],
+                   help="fold the --device_augment normalize into the stem "
+                        "conv; auto: on in the dense test only")
     # addition of dpc_tpu_torch
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; cuda without a card fails")
@@ -126,10 +150,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _reject_unsupported(args) -> None:
     later = {
-        "--device_augment": (args.device_augment,
-                             "queue 1 item 12 (device augmentation)"),
-        "--five_crop": (args.five_crop,
-                        "queue 1 item 12 (device augmentation)"),
         "--num_devices": (args.num_devices > 1,
                           "queue 1 item 13 (multi-GPU)"),
         "--model_parallel": (args.model_parallel > 1,
@@ -159,6 +179,7 @@ def config_from_args(args) -> ExperimentConfig:
                         num_workers=args.num_workers,
                         worker_mode=args.worker_mode,
                         prefetch=args.prefetch,
+                        test_keep_short=args.test_keep_short,
                         test_tail_window=args.test_tail_window),
         train=TrainConfig(batch_size=args.batch_size, seed=args.seed,
                           num_devices=args.num_devices,
@@ -169,48 +190,77 @@ def config_from_args(args) -> ExperimentConfig:
                         epochs=args.epochs, batch_size=args.batch_size,
                         lr_milestones=milestones,
                         backbone_lr_scale=args.backbone_lr_scale,
-                        remat=args.remat, reset_lr=args.reset_lr),
+                        five_crop=args.five_crop, remat=args.remat,
+                        device_augment=args.device_augment,
+                        fold_normalize=args.fold_normalize,
+                        reset_lr=args.reset_lr),
     )
 
 
-def get_dataset(cfg: ExperimentConfig, mode: str):
+def get_dataset(cfg: ExperimentConfig, mode: str, unit_test: bool = False):
     """The ``mode`` split with the finetune recipes: a frame tree with the
-    reference's (``augment.finetune_transform``), or the synthetic videos
-    with a random sized crop for train and val and the centre crop for
-    test."""
+    reference's (``augment.finetune_transform``, five crops in the test
+    with ``five_crop``), or the synthetic videos with a random sized crop
+    for train and val and the centre crop (or five) for test.  With
+    ``device_augment`` only the host half, ``HostScaleCrop`` to the window
+    of ``device_augment_geometry``: the whole frame at short side 240 for
+    train and val (their RandomSizedCrop draws from all of it), the centre
+    224² window for the test, or the frame its five crops are cut from."""
     m, d = cfg.model, cfg.data
-    if d.dataset != "synthetic":
-        return make_dataset(
-            d.dataset, d.data_root, mode,
-            augment.finetune_transform(m.img_dim, mode),
-            num_seq=m.num_seq, seq_len=m.seq_len, downsample=d.downsample,
-            split=d.split, return_label=True,
-            val_subsample=d.val_subsample, tail_window=d.test_tail_window)
-    crop = augment.RandomSizedCrop(size=m.img_dim,
-                                   p=0.0 if mode == "test" else 1.0)
-    return SyntheticVideoDataset(
-        transform=augment.Compose([crop, augment.Normalize()]),
+    five = cfg.eval.five_crop and mode == "test"
+    synthetic = dict(
         num_videos=d.synthetic_num_videos, video_len=d.synthetic_video_len,
-        frame_size=max(m.img_dim, 130), num_seq=m.num_seq,
-        seq_len=m.seq_len, downsample=d.downsample, mode=mode,
-        return_label=True, num_classes=NUM_CLASSES["synthetic"],
+        frame_size=max(m.img_dim, 130), num_seq=m.num_seq, seq_len=m.seq_len,
+        downsample=d.downsample, mode=mode, return_label=True,
+        num_classes=NUM_CLASSES["synthetic"],
         seed={"val": 2, "test": 3}.get(mode, 0),
         tail_window=d.test_tail_window)
+    frames = dict(num_seq=m.num_seq, seq_len=m.seq_len,
+                  downsample=d.downsample, split=d.split, return_label=True,
+                  unit_test=unit_test, val_subsample=d.val_subsample,
+                  keep_short_test=d.test_keep_short,
+                  tail_window=d.test_tail_window, five_crop=five)
+    if cfg.eval.device_augment:
+        task = ("test_five" if five else "test") if mode == "test" \
+            else "finetune"
+        short, win = device_augment_geometry(d.dataset, m.img_dim, task)
+        host = augment.HostScaleCrop(short, win, center=mode == "test")
+        if d.dataset == "synthetic":
+            return SyntheticVideoDataset(transform=host, **synthetic)
+        return make_dataset(d.dataset, d.data_root, mode, host, **frames)
+    if d.dataset != "synthetic":
+        return make_dataset(d.dataset, d.data_root, mode,
+                            augment.finetune_transform(m.img_dim, mode,
+                                                       five_crop=five),
+                            **frames)
+    if five:
+        crop = augment.FiveCrop(m.img_dim)
+    else:
+        crop = augment.RandomSizedCrop(size=m.img_dim,
+                                       p=0.0 if mode == "test" else 1.0)
+    return SyntheticVideoDataset(
+        transform=augment.Compose([crop, augment.Normalize()]), **synthetic)
 
 
 def run_test(cfg: ExperimentConfig, model: lc.LC, exp_dir: str, *,
-             window_batch: int = 0) -> tuple[float, float]:
+             window_batch: int = 0, unit_test: bool = False
+             ) -> tuple[float, float]:
     """Dense evaluation (``eval/test.py:303-342``): every video → windows →
-    softmax averaged over its windows → top-1/top-5 and the confusion
-    matrix.  Windows are pooled across videos into one fixed
+    softmax averaged over its windows (and crops) → top-1/top-5 and the
+    confusion matrix.  Windows are pooled across videos into one fixed
     ``[WB, N, SL, H, W, 3]`` batch (the tail batch padded with repeats that
     are dropped), and the host renders videos on a worker thread while the
-    device runs.  Returns (loss, top1)."""
+    device runs.  Under ``--five_crop --device_augment`` each window row
+    becomes K = 5 logit rows in the forward (the host five crops arrive as
+    rows already, K = 1).  Returns (loss, top1)."""
     e = cfg.eval
     device = next(model.parameters()).device
-    ds = get_dataset(cfg, "test")
+    ds = get_dataset(cfg, "test", unit_test)
     wb = window_batch or 8
-    forward = finetune_step.make_test_forward(cfg.model, e, model)
+    k_crops = 5 if (e.five_crop and e.device_augment) else 1
+    forward = finetune_step.make_test_forward(
+        cfg.model, e, model,
+        test_crop=dense_test_crop(cfg.data.dataset, cfg.model.img_dim))
     confusion = ConfusionMeter(e.num_classes)
     top1s, top5s, losses = [], [], []
     q: queue.Queue = queue.Queue(maxsize=4)
@@ -254,13 +304,14 @@ def run_test(cfg: ExperimentConfig, model: lc.LC, exp_dir: str, *,
             return
         rows = np.concatenate(buf, axis=0)
         r = rows.shape[0]
-        n_windows += r
+        n_windows += r * k_crops
         if r < wb:  # tail batch: pad with repeats, dropped below
             rows = np.concatenate([rows, np.repeat(rows[-1:], wb - r, 0)])
         x = torch.from_numpy(rows).to(device)
-        logits = forward(x).float().cpu().numpy()[:r]
+        logits = forward(x).float().cpu().numpy()[:r * k_crops]
         ofs = 0
         for vid, cnt in meta:
+            cnt *= k_crops  # a row's crops are contiguous
             chunks.setdefault(vid, []).append(logits[ofs:ofs + cnt])
             ofs += cnt
             if sum(a.shape[0] for a in chunks[vid]) == counts[vid]:
@@ -276,7 +327,7 @@ def run_test(cfg: ExperimentConfig, model: lc.LC, exp_dir: str, *,
         if isinstance(item, Exception):
             raise item
         vid, (clip, label) = item
-        counts[vid], labels[vid] = clip.shape[0], int(label)
+        counts[vid], labels[vid] = clip.shape[0] * k_crops, int(label)
         ofs = 0
         while ofs < clip.shape[0]:
             take = min(space, clip.shape[0] - ofs)
@@ -295,6 +346,7 @@ def run_test(cfg: ExperimentConfig, model: lc.LC, exp_dir: str, *,
     print(f"[test] loss {loss:.4f}; top1 {top1:.4f}; top5 {top5:.4f}")
     print(f"[test] {n_windows} windows / {len(ds)} videos in {dt:.1f}s = "
           f"{n_windows / dt:.1f} windows/s (WB={wb})")
+    loop.report_fallbacks(ds)
     table = AccuracyTable()
     for t_cls in range(e.num_classes):
         cnt = int(confusion.mat[:, t_cls].sum())
@@ -345,7 +397,8 @@ def main(argv=None) -> None:
                 ckpt.transfer_load(model, sd)
             print(f"loaded test checkpoint {args.test}"
                   + (f" epoch {epoch}" if epoch is not None else ""))
-        run_test(cfg, model, exp_dir, window_batch=args.window_batch)
+        run_test(cfg, model, exp_dir, window_batch=args.window_batch,
+                 unit_test=args.unit_test)
         return
 
     if args.pretrain:
@@ -396,17 +449,16 @@ def main(argv=None) -> None:
         model, opt, e.remat)
     eval_step = finetune_step.make_finetune_eval_step(m, e, model)
     gen = torch.Generator(device=device)
+    aug_gen = torch.Generator()  # the device recipe's draws, made on the host
+    augmenting = e.device_augment
+    to_device = loop.DeviceFeed(device)
 
     def loader(mode: str, seed: int) -> ClipLoader:
-        return ClipLoader(get_dataset(cfg, mode),
+        return ClipLoader(get_dataset(cfg, mode, args.unit_test),
                           t.batch_size, num_workers=cfg.data.num_workers,
                           worker_mode=cfg.data.worker_mode,
-                          prefetch_batches=cfg.data.prefetch, seed=seed)
-
-    def to_device(batch):
-        clips, labels = batch
-        return (torch.from_numpy(np.ascontiguousarray(clips)).to(device),
-                torch.from_numpy(labels).to(device))
+                          prefetch_batches=cfg.data.prefetch, seed=seed,
+                          pin_memory=device.type == "cuda")
 
     train_loader, val_loader = loader("train", t.seed), loader("val",
                                                                t.seed + 1)
@@ -431,9 +483,19 @@ def main(argv=None) -> None:
             def train_dispatch(idx, batch, epoch=epoch, lr_scale=lr_scale):
                 def reseed():
                     gen.manual_seed(loop.step_seed(t.seed, epoch, idx))
+                    if augmenting:
+                        aug_gen.manual_seed(loop.step_seed(
+                            t.seed, epoch, idx, loop.TRAIN_AUGMENT))
 
                 reseed()
-                return step(reseed, *to_device(batch), gen, lr_scale)
+                return step(reseed, *to_device(batch), gen, lr_scale,
+                            aug_gen)
+
+            def val_dispatch(idx, batch, epoch=epoch):
+                if augmenting:
+                    aug_gen.manual_seed(loop.step_seed(t.seed, epoch, idx,
+                                                       loop.VAL_AUGMENT))
+                return eval_step(*to_device(batch), aug_gen)
 
             n_train = len(train_loader)
             train_done = (min(n_train, args.steps_per_epoch)
@@ -453,16 +515,17 @@ def main(argv=None) -> None:
                 save_every_steps=args.save_every_steps, guard=guard)
             dt = time.perf_counter() - t0
             nv = loop.run_epoch(
-                lambda idx, batch: eval_step(*to_device(batch)), val_loader,
-                vmeters, mode="val", print_freq=t.print_freq, epoch=epoch,
+                val_dispatch, val_loader, vmeters, mode="val",
+                print_freq=t.print_freq, epoch=epoch,
                 max_steps=args.steps_per_epoch,
                 step_save_fn=save_from_val if step_mgr else None,
                 guard=guard, train=False)
             tr, va = meters.averages(), vmeters.averages()
-            print(f"epoch {epoch}: train loss {tr.get('loss', 0.0):.4f} "
-                  f"top1 {tr.get('top1', 0.0):.4f} ({n} steps, {dt:.1f} s) "
-                  f"| val loss {va.get('loss', 0.0):.4f} top1 "
-                  f"{va.get('top1', 0.0):.4f} ({nv} steps)", flush=True)
+            print(f"epoch {epoch}: train top1 {tr.get('top1', 0):.4f} | "
+                  f"val top1 {va.get('top1', 0):.4f}")
+            print(f"[epoch {epoch}] {n} train steps in {dt:.1f} s, train "
+                  f"loss {tr.get('loss', 0.0):.4f}; {nv} val steps, val "
+                  f"loss {va.get('loss', 0.0):.4f}", flush=True)
             val_acc = va.get("top1", 0.0)
             best_acc = max(best_acc, val_acc)
             write_log(content=f"train top1 {tr.get('top1', 0.0):.4f}; "
@@ -479,6 +542,7 @@ def main(argv=None) -> None:
         val_loader.close()
         if guard is not None:
             guard.uninstall()
+    loop.report_fallbacks(train_loader.dataset, val_loader.dataset)
     print(f"Finetune from ep {start_epoch} to ep {e.epochs} finished; "
           f"best val top1 {best_acc:.4f}")
 

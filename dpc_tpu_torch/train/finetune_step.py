@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from torch.utils import checkpoint
 
 from dpc_tpu_torch.core.config import DPCConfig, EvalConfig
+from dpc_tpu_torch.data import device_augment
 from dpc_tpu_torch.models import lc
 from dpc_tpu_torch.train import optim
 
@@ -45,40 +46,65 @@ def _autocast(model_cfg: DPCConfig, device: torch.device):
                           enabled=model_cfg.compute_dtype == "bfloat16")
 
 
-def _check_supported(eval_cfg: EvalConfig) -> None:
-    if eval_cfg.device_augment:
-        raise NotImplementedError(
-            "device_augment is not ported to dpc_tpu_torch yet: ROADMAP.md "
-            "queue 1 item 12 (device augmentation)")
+def make_augment(model_cfg: DPCConfig, eval_cfg: EvalConfig, mode: str
+                 ) -> tuple[Optional[Callable], Optional[tuple]]:
+    """``(augment, input_norm)`` of the ``mode`` ('train' or 'val') recipe:
+    ``augment(batch, gen)`` runs it on a uint8 batch with draws from the
+    CPU generator ``gen`` (None without ``device_augment``)."""
+    fold, input_norm = device_augment.resolve_fold(eval_cfg)
+    if not eval_cfg.device_augment:
+        return None, input_norm
+
+    def augment(batch: torch.Tensor,
+                gen: Optional[torch.Generator]) -> torch.Tensor:
+        if gen is None:
+            raise ValueError("device_augment draws from an augmentation "
+                             "generator; the step was given none")
+        if batch.dtype != torch.uint8:
+            raise ValueError(f"device_augment takes uint8 windows, got "
+                             f"{batch.dtype}")
+        b, _, _, h, w, _ = batch.shape
+        draws = device_augment.draw_finetune(gen, b, h, w, mode)
+        return device_augment.finetune_augment_batch(
+            batch, draws.to(batch.device), model_cfg.img_dim, mode=mode,
+            normalize_out=not fold)
+
+    return augment, input_norm
 
 
 def make_finetune_step(model_cfg: DPCConfig, eval_cfg: EvalConfig,
                        model: lc.LC, optimizer: torch.optim.Optimizer
                        ) -> Callable[..., dict]:
     """Build the train step: ``step(batch, labels, generator=None,
-    lr_scale=1.0) -> metrics``.
+    lr_scale=1.0, augment_gen=None) -> metrics``.
 
-    ``batch`` ``[B, N, SL, H, W, 3]`` f32 and ``labels`` ``[B]`` on the
-    model's device; ``generator`` draws the GRU and head dropout (None: no
-    dropout); every optimizer group runs at ``base_lr·lr_scale``.  Returns
-    ``{loss, top1, top5}`` as 0-d tensors on the device.
+    ``batch`` ``[B, N, SL, H, W, 3]`` (f32 clips, or uint8 windows with
+    ``device_augment``, whose recipe draws from the CPU generator
+    ``augment_gen``) and ``labels`` ``[B]`` on the model's device;
+    ``generator`` draws the GRU and head dropout (None: no dropout); every
+    optimizer group runs at ``base_lr·lr_scale``.  Returns ``{loss, top1,
+    top5}`` as 0-d tensors on the device.
 
     ``eval_cfg.remat`` recomputes the LC forward in the backward
     (``torch.utils.checkpoint``).  The recomputation replays the same
     dropout draws, and the running statistics are put back to their value
     after the forward, so the step computes what the plain step does."""
-    _check_supported(eval_cfg)
     device = next(model.parameters()).device
+    augment, input_norm = make_augment(model_cfg, eval_cfg, "train")
 
     def forward(batch, generator):
         with _autocast(model_cfg, device):
             logits, _, _ = lc.apply_lc(model, batch, cfg=model_cfg,
-                                       train=True, generator=generator)
+                                       train=True, generator=generator,
+                                       input_norm=input_norm)
         return logits[:, 0]
 
     def step(batch: torch.Tensor, labels: torch.Tensor,
              generator: Optional[torch.Generator] = None,
-             lr_scale: float = 1.0) -> dict:
+             lr_scale: float = 1.0,
+             augment_gen: Optional[torch.Generator] = None) -> dict:
+        if augment is not None:
+            batch = augment(batch, augment_gen)
         optim.set_lr_scale(optimizer, lr_scale)
         optimizer.zero_grad(set_to_none=True)
         if eval_cfg.remat:
@@ -106,34 +132,49 @@ def make_finetune_step(model_cfg: DPCConfig, eval_cfg: EvalConfig,
 
 def make_finetune_eval_step(model_cfg: DPCConfig, eval_cfg: EvalConfig,
                             model: lc.LC) -> Callable[..., dict]:
-    """Validation: ``eval_step(batch, labels) -> {loss, top1, top5}``, the
-    eval-mode forward (running statistics, no dropout)."""
-    _check_supported(eval_cfg)
+    """Validation: ``eval_step(batch, labels, augment_gen=None) -> {loss,
+    top1, top5}``, the eval-mode forward (running statistics, no dropout),
+    after the val recipe on the card with ``device_augment`` (the
+    reference's val transform is stochastic too, ``eval/test.py:150-176``).
+    """
     device = next(model.parameters()).device
+    augment, input_norm = make_augment(model_cfg, eval_cfg, "val")
 
     @torch.no_grad()
-    def eval_step(batch: torch.Tensor, labels: torch.Tensor) -> dict:
+    def eval_step(batch: torch.Tensor, labels: torch.Tensor,
+                  augment_gen: Optional[torch.Generator] = None) -> dict:
+        if augment is not None:
+            batch = augment(batch, augment_gen)
         with _autocast(model_cfg, device):
             logits, _, _ = lc.apply_lc(model, batch, cfg=model_cfg,
-                                       train=False)
+                                       train=False, input_norm=input_norm)
         return _metrics(logits[:, 0], labels)
 
     return eval_step
 
 
 def make_test_forward(model_cfg: DPCConfig, eval_cfg: EvalConfig,
-                      model: lc.LC) -> Callable[[torch.Tensor], torch.Tensor]:
+                      model: lc.LC, test_crop: int = 224
+                      ) -> Callable[[torch.Tensor], torch.Tensor]:
     """The dense-test forward: ``forward(windows [WB, N, SL, H, W, 3]) ->
-    logits [WB, C]`` in eval mode; the window axis rides the batch axis
-    (``eval/test.py:314-321``)."""
-    _check_supported(eval_cfg)
+    logits [WB·K, C]`` in eval mode; the window axis rides the batch axis
+    (``eval/test.py:314-321``).  With ``device_augment`` the windows are
+    uint8 and the test recipe (centre or, with ``five_crop``, K = 5 crops
+    of ``test_crop``, each row's crops contiguous) runs here first; 'auto'
+    folds its normalize into the stem, so the uint8 windows feed the stem
+    conv directly.  Otherwise K = 1."""
     device = next(model.parameters()).device
+    fold, input_norm = device_augment.resolve_fold(eval_cfg, dense_test=True)
 
     @torch.no_grad()
     def forward(windows: torch.Tensor) -> torch.Tensor:
+        if eval_cfg.device_augment:
+            windows = device_augment.test_preprocess_batch(
+                windows, model_cfg.img_dim, test_crop,
+                five_crop=eval_cfg.five_crop, normalize_out=not fold)
         with _autocast(model_cfg, device):
             logits, _, _ = lc.apply_lc(model, windows, cfg=model_cfg,
-                                       train=False)
+                                       train=False, input_norm=input_norm)
         return logits[:, 0]
 
     return forward

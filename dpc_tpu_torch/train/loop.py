@@ -18,6 +18,8 @@ import time
 import numpy as np
 import torch
 
+from dpc_tpu_torch.data.video_dataset import count_fallbacks
+
 
 class PreemptionGuard:
     """SIGTERM/SIGINT → finish the current step, checkpoint, exit cleanly.
@@ -92,12 +94,55 @@ class RematRetry:
         return out
 
 
-def step_seed(seed: int, epoch: int, idx: int) -> int:
-    """The dropout seed of train step ``idx`` of ``epoch``: derived, not
+# the random streams of a step: dropout, and the device recipes' draws
+DROPOUT, TRAIN_AUGMENT, VAL_AUGMENT = 0, 1, 2
+
+
+def step_seed(seed: int, epoch: int, idx: int, stream: int = DROPOUT) -> int:
+    """The seed of ``stream`` at step ``idx`` of ``epoch``: derived, not
     carried, so a run resumed at any step draws what the uninterrupted run
     drew there."""
-    return int(np.random.SeedSequence((seed, epoch, idx)).generate_state(
+    entropy = (seed, epoch, idx) if stream == DROPOUT else (seed, epoch, idx,
+                                                           stream)
+    return int(np.random.SeedSequence(entropy).generate_state(
         1, np.uint64)[0] >> np.uint64(1))
+
+
+class DeviceFeed:
+    """Host batches to the device.  On a card the copy runs on a side
+    stream from pinned memory and the compute stream waits for it, so the
+    copy of batch i+1 overlaps step i (the loop queues one step ahead);
+    on the CPU it hands the tensors through."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.stream = (torch.cuda.Stream(device) if device.type == "cuda"
+                       else None)
+
+    def __call__(self, batch):
+        """A tensor or array, or a tuple of them."""
+        if isinstance(batch, (tuple, list)):
+            return tuple(self(b) for b in batch)
+        t = batch if isinstance(batch, torch.Tensor) else \
+            torch.from_numpy(np.ascontiguousarray(batch))
+        if self.stream is None:
+            return t.to(self.device)
+        if not t.is_pinned():
+            t = t.pin_memory()
+        with torch.cuda.stream(self.stream):
+            out = t.to(self.device, non_blocking=True)
+        compute = torch.cuda.current_stream(self.device)
+        compute.wait_stream(self.stream)
+        out.record_stream(compute)
+        return out
+
+
+def report_fallbacks(*datasets) -> None:
+    """Print the planned-decode fallbacks of the datasets that plan (the
+    ``--device_augment`` host half); nothing for the others."""
+    fallbacks = count_fallbacks(*datasets)
+    if fallbacks is not None:
+        print(f"[feed] planned-decode fallbacks: {fallbacks}", flush=True)
 
 
 def _rows_of(batch) -> int:

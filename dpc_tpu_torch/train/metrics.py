@@ -1,7 +1,8 @@
 """Meters and the test-time accuracy records (a copy of the parts of
 ``dpc_tpu/train/metrics.py`` the evaluation driver uses).
 
-Averages of per-step metrics (``utils/utils.py:77-113``), the per-class
+Averages of per-step metrics with the reference's 5-update sliding
+``local_avg`` (``utils/utils.py:77-113``), the per-class
 accuracy table (``:116-137``), the confusion matrix (``:140-193``; saved
 as text, without the plot) and the markdown log (``:28-36``).
 """
@@ -10,38 +11,52 @@ from __future__ import annotations
 
 import os
 import time
+from collections import deque
 
 import numpy as np
 
 
 class AverageMeter:
-    """Running sum, count and average (``utils/utils.py:77-113``)."""
+    """Running sum, count and average, and ``local_avg``: the unweighted
+    mean of the last ``history`` (5) updates, which the reference reports
+    at the end of an epoch (``utils/utils.py:77-113``)."""
 
-    def __init__(self):
+    def __init__(self, history: int = 5):
         self.sum = 0.0
         self.count = 0
+        self._local: deque = deque(maxlen=history)
 
     def update(self, val: float, n: int = 1) -> None:
         self.sum += float(val) * n
         self.count += n
+        self._local.append(float(val))
 
     @property
     def avg(self) -> float:
         return self.sum / max(self.count, 1)
 
+    @property
+    def local_avg(self) -> float:
+        return float(np.mean(self._local)) if self._local else 0.0
+
 
 class MetricBundle:
     """A dict of AverageMeters updated from metric dicts."""
 
-    def __init__(self):
+    def __init__(self, history: int = 5):
+        self.history = history
         self.meters: dict[str, AverageMeter] = {}
 
     def update(self, metrics: dict, n: int = 1) -> None:
         for k, v in metrics.items():
-            self.meters.setdefault(k, AverageMeter()).update(float(v), n)
+            self.meters.setdefault(
+                k, AverageMeter(self.history)).update(float(v), n)
 
     def averages(self) -> dict[str, float]:
         return {k: m.avg for k, m in self.meters.items()}
+
+    def local_averages(self) -> dict[str, float]:
+        return {k: m.local_avg for k, m in self.meters.items()}
 
 
 class AccuracyTable:

@@ -8,27 +8,30 @@ after each train epoch, epoch checkpoints in the reference's ``.pth.tar``
 layout with the best by val top-1, ``--resume`` and ``--reset_lr``,
 ``--save_every_steps`` with exact-batch mid-epoch resume, a SIGTERM/SIGINT
 guard that checkpoints and exits (also during validation), ``--pretrain``,
-and a retry with activation checkpointing (``--remat``) when the first step
-runs out of device memory.  The dropout draws and the loader's order are
-derived from (seed, epoch, batch), so a resumed run computes what the
-uninterrupted run did.  Device augmentation and several devices raise
-(ROADMAP queue 1 items 12 and 13).
+a retry with activation checkpointing (``--remat``) when the first step
+runs out of device memory, and ``--device_augment``: the host half decodes
+uint8 windows (the scale and crop inside the JPEG decode), the recipe runs
+on the device inside the steps, and ``--fold_normalize`` may fold its
+normalize into the stem conv.  The dropout and augmentation draws and the
+loader's order are derived from (seed, epoch, batch), so a resumed run
+computes what the uninterrupted run did.  Several devices raise (ROADMAP
+queue 1 item 13).
 
 Usage:
   python -m dpc_tpu_torch.train.pretrain --dataset synthetic --epochs 1 \
       --steps_per_epoch 2 --batch_size 8 --nce_impl fused
   python -m dpc_tpu_torch.train.pretrain --dataset ucf101 --data_root DIR \
-      --batch_size 64 --epochs 300 --save_every_steps 500
+      --batch_size 64 --epochs 300 --save_every_steps 500 --device_augment
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
 import time
 
-import numpy as np
 import torch
 
 from dpc_tpu_torch.core import checkpoint as ckpt
@@ -36,6 +39,7 @@ from dpc_tpu_torch.core.config import (DataConfig, DPCConfig,
                                        ExperimentConfig, TrainConfig,
                                        experiment_name, resolve_device)
 from dpc_tpu_torch.data import augment
+from dpc_tpu_torch.data.device_augment import device_augment_geometry
 from dpc_tpu_torch.data.loader import ClipLoader
 from dpc_tpu_torch.data.synthetic import SyntheticVideoDataset
 from dpc_tpu_torch.data.video_dataset import make_dataset
@@ -82,7 +86,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num_devices", default=0, type=int)
     p.add_argument("--model_parallel", default=1, type=int)
     p.add_argument("--cross_replica_bn", action="store_true")
-    p.add_argument("--device_augment", action="store_true")
+    p.add_argument("--device_augment", action="store_true",
+                   help="host workers decode uint8 windows only; the crop, "
+                        "flip, gray, jitter and normalize run on the device")
+    p.add_argument("--fold_normalize", default="auto",
+                   choices=["auto", "on", "off"],
+                   help="fold the --device_augment normalize into the stem "
+                        "conv; auto: off for the pretrain recipes")
     p.add_argument("--remat", action="store_true")
     p.add_argument("--num_workers", default=8, type=int)
     p.add_argument("--prefetch", default=4, type=int)
@@ -90,6 +100,8 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["thread", "process"])
     p.add_argument("--seed", default=0, type=int)
     p.add_argument("--synthetic_videos", default=32, type=int)
+    p.add_argument("--unit_test", action="store_true",
+                   help="32-video subsample for smoke runs")
     p.add_argument("--steps_per_epoch", default=0, type=int,
                    help="cap train and val steps per epoch (0 = full epoch)")
     p.add_argument("--save_every_steps", default=0, type=int,
@@ -108,8 +120,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _reject_unsupported(args) -> None:
     later = {
-        "--device_augment": (args.device_augment,
-                             "queue 1 item 12 (device augmentation)"),
         "--num_devices": (args.num_devices > 1,
                           "queue 1 item 13 (multi-GPU)"),
         "--model_parallel": (args.model_parallel > 1,
@@ -146,15 +156,39 @@ def config_from_args(args) -> ExperimentConfig:
                           negatives=args.negatives, nce_impl=args.nce_impl,
                           cross_replica_bn=args.cross_replica_bn,
                           device_augment=args.device_augment,
+                          fold_normalize=args.fold_normalize,
+                          device_augment_recipe=(
+                              "sized_crop" if args.dataset == "k400"
+                              else "crop_resize"),
                           remat=args.remat),
     )
 
 
-def get_dataset(cfg: ExperimentConfig, mode: str):
+def get_dataset(cfg: ExperimentConfig, mode: str, unit_test: bool = False):
     """The ``mode`` split with the pretrain recipe: the synthetic videos
     with a random sized crop, or a frame tree with the reference's recipe
-    for its dataset (``augment.pretrain_transform``)."""
+    for its dataset (``augment.pretrain_transform``).  With
+    ``device_augment`` only the host half: ``HostScaleCrop`` to the window
+    of ``device_augment_geometry`` (UCF/HMDB the consistent 224 crop of the
+    240 short side, K400 a native-geometry window), which a frame tree runs
+    inside the JPEG decode; the recipe runs in the steps."""
     m, d = cfg.model, cfg.data
+    big = d.dataset == "k400" and m.img_dim > 140  # dpc/main.py:288
+    if cfg.train.device_augment:
+        short, win = device_augment_geometry(d.dataset, m.img_dim)
+        host = augment.HostScaleCrop(short, win)
+        if d.dataset == "synthetic":
+            return SyntheticVideoDataset(
+                transform=host, num_videos=d.synthetic_num_videos,
+                video_len=d.synthetic_video_len,
+                frame_size=max(m.img_dim, 130), num_seq=m.num_seq,
+                seq_len=m.seq_len, downsample=d.downsample, mode=mode,
+                seed=1 if mode == "val" else 0)
+        return make_dataset(d.dataset, d.data_root, mode, host,
+                            num_seq=m.num_seq, seq_len=m.seq_len,
+                            downsample=d.downsample, big=big,
+                            unit_test=unit_test,
+                            val_subsample=d.val_subsample)
     if d.dataset == "synthetic":
         return SyntheticVideoDataset(
             transform=augment.Compose([
@@ -165,19 +199,20 @@ def get_dataset(cfg: ExperimentConfig, mode: str):
             frame_size=max(m.img_dim, 130), num_seq=m.num_seq,
             seq_len=m.seq_len, downsample=d.downsample, mode=mode,
             seed=1 if mode == "val" else 0)
-    big = d.dataset == "k400" and m.img_dim > 140  # dpc/main.py:288
     return make_dataset(d.dataset, d.data_root, mode,
                         augment.pretrain_transform(d.dataset, m.img_dim),
                         num_seq=m.num_seq, seq_len=m.seq_len,
                         downsample=d.downsample, big=big,
-                        val_subsample=d.val_subsample)
+                        unit_test=unit_test, val_subsample=d.val_subsample)
 
 
 def _profile_epoch(path: str):
     """Start a torch.profiler; returns ``finish(steps, batch_size)``, which
-    writes its table to ``path`` and prints the epoch's train clips/s and
-    the device's busy share (kernel time over wall time, the waits for the
-    loader included)."""
+    writes its table to ``path``, the device time of every kernel name (ms
+    over the window) to ``path + '.json'``, and prints the epoch's train
+    clips/s and the device's busy share (kernel time over wall time, the
+    waits for the loader included; the JPEG codec's kernels count where
+    they run on the same card)."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
@@ -191,8 +226,11 @@ def _profile_epoch(path: str):
             torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
         prof.stop()
+        # device work only: the GPU ranges of user annotations (the
+        # optimizer's step, for one) would count their kernels twice
         events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)]
         busy_ms = sum(e.self_device_time_total for e in events) / 1e3
         summary = (f"{steps} train steps: wall {wall_ms:.1f} ms, "
                    f"{1e3 * steps * batch_size / wall_ms:.2f} clips/s, "
@@ -201,6 +239,9 @@ def _profile_epoch(path: str):
         with open(path, "a") as f:
             f.write(summary + "\n" + prof.key_averages().table(
                 sort_by="self_cuda_time_total", row_limit=40) + "\n")
+        with open(path + ".json", "w") as f:
+            json.dump({"steps": steps, "wall_ms": wall_ms, "kernels_ms": {
+                e.key: e.self_device_time_total / 1e3 for e in events}}, f)
         print(f"[profile] {summary}; table in {path}", flush=True)
 
     return finish
@@ -276,15 +317,16 @@ def main(argv=None) -> None:
         model, opt, t.remat)
     eval_step = pretrain_step.make_eval_step(m, t, model)
     gen = torch.Generator(device=device)
+    aug_gen = torch.Generator()  # the device recipe's draws, made on the host
+    augmenting = t.device_augment
+    to_device = loop.DeviceFeed(device)
 
     def loader(mode: str, seed: int) -> ClipLoader:
-        return ClipLoader(get_dataset(cfg, mode),
+        return ClipLoader(get_dataset(cfg, mode, args.unit_test),
                           t.batch_size, num_workers=cfg.data.num_workers,
                           worker_mode=cfg.data.worker_mode,
-                          prefetch_batches=cfg.data.prefetch, seed=seed)
-
-    def to_device(batch) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(batch)).to(device)
+                          prefetch_batches=cfg.data.prefetch, seed=seed,
+                          pin_memory=device.type == "cuda")
 
     train_loader, val_loader = loader("train", t.seed), loader("val",
                                                                t.seed + 1)
@@ -309,9 +351,18 @@ def main(argv=None) -> None:
             def train_dispatch(idx, batch, epoch=epoch):
                 def reseed():
                     gen.manual_seed(loop.step_seed(t.seed, epoch, idx))
+                    if augmenting:
+                        aug_gen.manual_seed(loop.step_seed(
+                            t.seed, epoch, idx, loop.TRAIN_AUGMENT))
 
                 reseed()
-                return step(reseed, to_device(batch), gen)
+                return step(reseed, to_device(batch), gen, aug_gen)
+
+            def val_dispatch(idx, batch, epoch=epoch):
+                if augmenting:
+                    aug_gen.manual_seed(loop.step_seed(t.seed, epoch, idx,
+                                                       loop.VAL_AUGMENT))
+                return eval_step(to_device(batch), aug_gen)
 
             def count_iteration(idx, metrics):
                 nonlocal iteration
@@ -342,16 +393,19 @@ def main(argv=None) -> None:
             if finish is not None:
                 finish(n, t.batch_size)
             nv = loop.run_epoch(
-                lambda idx, batch: eval_step(to_device(batch)), val_loader,
-                vmeters, mode="val", print_freq=t.print_freq, epoch=epoch,
+                val_dispatch, val_loader, vmeters, mode="val",
+                print_freq=t.print_freq, epoch=epoch,
                 max_steps=args.steps_per_epoch,
                 step_save_fn=save_from_val if step_mgr else None,
                 guard=guard, train=False)
-            tr, va = meters.averages(), vmeters.averages()
-            print(f"epoch {epoch}: train loss {tr.get('loss', 0.0):.4f} "
-                  f"top1 {tr.get('top1', 0.0):.4f} ({n} steps, {dt:.1f} s) "
-                  f"| val loss {va.get('loss', 0.0):.4f} top1 "
-                  f"{va.get('top1', 0.0):.4f} ({nv} steps)", flush=True)
+            # the reference's epoch summary: the unweighted mean of the last
+            # 5 steps (dpc/main.py:246), which also picks the best
+            tr, va = meters.local_averages(), vmeters.local_averages()
+            print(f"epoch {epoch}: train loss {tr.get('loss', 0):.4f} "
+                  f"top1 {tr.get('top1', 0):.4f} | val loss "
+                  f"{va.get('loss', 0):.4f} top1 {va.get('top1', 0):.4f}")
+            print(f"[epoch {epoch}] {n} train steps in {dt:.1f} s, {nv} val "
+                  "steps", flush=True)
             val_acc = va.get("top1", 0.0)
             best_acc = max(best_acc, val_acc)
             mgr.save(epoch + 1,
@@ -365,6 +419,7 @@ def main(argv=None) -> None:
         val_loader.close()
         if guard is not None:
             guard.uninstall()
+    loop.report_fallbacks(train_loader.dataset, val_loader.dataset)
     print(f"Training from ep {start_epoch} to ep {t.epochs} finished")
 
 

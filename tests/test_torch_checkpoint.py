@@ -209,3 +209,27 @@ def test_eval_step_matches_dpc_tpu(nce_impl):
                                rtol=1e-4)
     for k in ("top1", "top3", "top5"):
         assert float(tm[k]) == float(jm[k]), k
+
+
+@pytest.mark.parametrize("history", [5, 3])
+def test_local_average_meter_matches_dpc_tpu(history):
+    """The meters' sliding ``local_avg`` (the unweighted mean of the last
+    ``history`` updates, the reference's epoch summary) and the weighted
+    ``avg`` against ``dpc_tpu.train.metrics`` over uneven batch sizes."""
+    from dpc_tpu.train import metrics as jax_metrics
+    from dpc_tpu_torch.train import metrics
+
+    ours, ref = metrics.MetricBundle(history), jax_metrics.MetricBundle(
+        history)
+    assert ours.local_averages() == ref.local_averages() == {}
+    rng = np.random.default_rng(history)
+    for i in range(9):
+        m = {"loss": float(rng.random() * 5), "top1": float(rng.random())}
+        n = int(rng.integers(1, 8))
+        ours.update(m, n)
+        ref.update(m, n)
+        assert ours.local_averages() == pytest.approx(ref.local_averages(),
+                                                      rel=1e-12)
+        assert ours.averages() == pytest.approx(ref.averages(), rel=1e-12)
+    assert ours.local_averages()["loss"] != pytest.approx(
+        ours.averages()["loss"])

@@ -18,6 +18,7 @@ from dpc_tpu.data import augment as jax_augment
 from dpc_tpu.data import video_dataset as jax_vd
 from dpc_tpu.data.synthetic import SyntheticVideoDataset as JaxSynthetic
 from dpc_tpu_torch import native
+from dpc_tpu_torch.core import shapes
 from dpc_tpu_torch.data import augment, video_dataset
 from dpc_tpu_torch.data.frame_tree import write_frame_tree
 from dpc_tpu_torch.data.synthetic import SyntheticVideoDataset
@@ -246,3 +247,159 @@ def test_frame_dataset_matches_dpc_tpu(tree, mode, monkeypatch):
         if mode == "test":
             assert a.shape[1:] == (2, 3, 32, 32, 3)
         np.testing.assert_allclose(a, b, rtol=0, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# The host half of --device_augment: the ROI decode, HostScaleCrop, the
+# five-crop ops and the planned dataset sample
+# ---------------------------------------------------------------------------
+
+
+def test_scale_crop_decode_is_bit_equal_to_dpc_tpu(tree):
+    paths = _frames(tree)
+    buffers = [open(p, "rb").read() for p in paths]
+    # scale 1 (the UCF short side), DCT-scaled + bilinear, off-centre
+    for short, crop in ((240, (8, 50, 224, 224)), (128, (0, 21, 128, 128)),
+                        (150, (3, 40, 120, 150))):
+        got, failures = native.decode_jpeg_batch_scale_crop(
+            buffers, short, crop, threads=2)
+        assert failures == 0 and got.shape == (3, *crop[2:], 3)
+        want = np.stack([jax_native.decode_jpeg_scale_crop(b, short, crop)
+                         for b in buffers])
+        assert np.array_equal(got, want), (short, crop)
+        assert np.array_equal(native.decode_jpeg_scale_crop(
+            buffers[1], short, crop), want[1])
+    full = native.decode_jpeg(buffers[0])
+    assert np.array_equal(native.decode_jpeg_scale_crop(
+        buffers[0], 240, (8, 50, 224, 224)), full[8:232, 50:274])
+    with pytest.raises(ValueError, match="outside"):
+        native.decode_jpeg_scale_crop(buffers[0], 240, (20, 0, 224, 224))
+    bad, failures = native.decode_jpeg_batch_scale_crop(
+        [b"not a jpeg", buffers[0]], 240, (0, 0, 8, 8))
+    assert failures == 1 and not bad[0].any() and bad[1].any()
+
+
+@pytest.mark.parametrize("center", [False, True])
+def test_host_scale_crop_matches_dpc_tpu(center):
+    for short, win, src in ((240, (224, 224), (240, 320)),
+                            (128, (128, 170), (240, 320)),
+                            (240, (240, 320), (240, 320)),
+                            (240, (224, 224), (320, 200))):  # portrait
+        ours = augment.HostScaleCrop(short, win, center=center)
+        ref = jax_augment.HostScaleCrop(short, win, center=center)
+        for seed in range(3):
+            ra, rj = np.random.default_rng(seed), np.random.default_rng(seed)
+            assert ours.plan(src, ra) == ref.plan(src, rj)
+            assert ra.bit_generator.state == rj.bit_generator.state
+    clip = _clip(0)
+    ours = augment.HostScaleCrop(240, (224, 224), center=center)
+    ref = jax_augment.HostScaleCrop(240, (224, 224), center=center)
+    ra, rj = np.random.default_rng(4), np.random.default_rng(4)
+    assert np.array_equal(ours(clip, ra), ref(clip, rj))  # scale 1
+    small = _clip(1, h=100, w=180)                        # pad + scale
+    ra, rj = np.random.default_rng(4), np.random.default_rng(4)
+    a = augment.HostScaleCrop(120, (120, 200))(small, ra)
+    b = jax_augment.HostScaleCrop(120, (120, 200))(small, rj)
+    assert a.shape == b.shape == (6, 120, 200, 3)
+    assert np.abs(a.astype(int) - b.astype(int)).max() <= 1
+    assert augment.frame_consistent(ours)
+
+
+def test_five_crop_pad_and_per_crop_match_dpc_tpu():
+    clip = _clip(2)
+    for ours, ref in ((augment.FiveCrop(200), jax_augment.FiveCrop(200)),
+                      (augment.FiveCrop((100, 180)),
+                       jax_augment.FiveCrop((100, 180))),
+                      (augment.PadTo(260, 330), jax_augment.PadTo(260, 330)),
+                      (augment.PadTo(200, 300), jax_augment.PadTo(200, 300)),
+                      (augment.Compose([augment.FiveCrop(224), augment.PerCrop(
+                          augment.Scale(size=(64, 64)))]),
+                       jax_augment.Compose([jax_augment.FiveCrop(224),
+                                            jax_augment.PerCrop(
+                           jax_augment.Scale(size=(64, 64)))]))):
+        a, b = ours(clip, None), ref(clip, None)
+        assert a.shape == b.shape and np.array_equal(a, b)
+    ours = augment.finetune_transform(64, "test", five_crop=True)
+    ref = jax_augment.finetune_transform(64, "test", five_crop=True)
+    a, b = ours(clip), ref(clip)
+    assert a.shape == b.shape == (5, 6, 64, 64, 3)
+    np.testing.assert_allclose(a, b, rtol=0, atol=1e-6)
+    assert augment.frame_consistent(ours) and jax_augment.frame_consistent(ref)
+    with pytest.raises(ValueError):
+        augment.FiveCrop(300)(clip)
+
+
+@pytest.mark.parametrize("mode", ["train", "test"])
+def test_planned_sample_matches_full_decode(tree, mode):
+    """The ROI-decoded sample of a HostScaleCrop dataset at scale 1 equals
+    the full decode plus the numpy geometry, draws included, and dpc_tpu's
+    planned sample; the dense test's dedupe and inverse gather too."""
+    kw = dict(num_seq=2, seq_len=3, downsample=2)
+    host = augment.HostScaleCrop(240, (224, 224), center=mode == "test")
+    ours = video_dataset.make_dataset("ucf101", tree, mode, host, **kw)
+    ref = jax_vd.make_dataset("ucf101", tree, mode, jax_augment.HostScaleCrop(
+        240, (224, 224), center=mode == "test"), **kw)
+    for i in range(2):
+        a = ours.sample(i, np.random.default_rng(i))
+        b = ref.sample(i, np.random.default_rng(i))
+        ra = np.random.default_rng(i)
+        record = ours.records[i]
+        if mode == "test":
+            assert a.ndim == 6 and a.shape[1:] == (2, 3, 224, 224, 3)
+            idx = shapes.test_time_windows(
+                record.num_frames, 2, 3, 2, ours.window_stride)
+        else:
+            start = shapes.sample_clip_start(ra, record.num_frames, 2, 3, 2)
+            idx = shapes.clip_block_indices(start, 2, 3, 2)
+        full = host(ours._load_frames(record, idx), ra)
+        assert a.dtype == np.uint8 and np.array_equal(a, b)
+        assert np.array_equal(a.reshape(full.shape), full)
+    assert ours.planned_fallbacks() == {"unplanned": 0, "undecoded": 0}
+    # a window the plan declines (it needs the reflect pad) is counted
+    tall = augment.HostScaleCrop(240, (250, 224))
+    ds = video_dataset.make_dataset("ucf101", tree, "train", tall, **kw)
+    assert ds.sample(0, np.random.default_rng(0)).shape[-3:] == (250, 224, 3)
+    assert video_dataset.count_fallbacks(ours, ds) == {"unplanned": 1,
+                                                       "undecoded": 0}
+
+
+def test_loader_fills_batches_in_place_under_contention():
+    """More workers than cores and a short switch interval: every batch the
+    workers fill in place holds exactly its positions' samples and labels,
+    in order, and stopping early returns at once."""
+    import sys
+    import threading
+
+    from dpc_tpu_torch.data.loader import ClipLoader
+
+    class Items:
+        def __len__(self):
+            return 96
+
+        def sample(self, i, rng):
+            return (np.full((4, 8), i, np.int64)
+                    + 1000 * int(rng.integers(0, 1000))), i % 7
+
+    loader = ClipLoader(Items(), 6, num_workers=32, seed=5,
+                        prefetch_batches=2)
+    got = []
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        worker = threading.Thread(target=lambda: got.extend(loader))
+        worker.start()
+        worker.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not worker.is_alive() and len(got) == 16
+    order = loader._order()
+    for b, (clips, labels) in enumerate(got):
+        for slot in range(6):
+            pos = b * 6 + slot
+            rng = np.random.default_rng((5, 0, pos))
+            want, label = Items().sample(int(order[pos]), rng)
+            assert np.array_equal(clips[slot], want) and labels[slot] == label
+    it = loader.iterate(2)
+    clips, _ = next(it)
+    assert np.array_equal(clips[0] % 1000, np.full((4, 8), order[12]))
+    it.close()  # stops the producer without waiting for its batches

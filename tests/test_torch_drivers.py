@@ -11,9 +11,11 @@ sent by the process to itself inside ``loop.run_epoch``.
 
 import math
 import os
+import re
 import shutil
 import signal
 
+import numpy as np
 import pytest
 import torch
 
@@ -81,7 +83,8 @@ def test_pretrain_validates_checkpoints_and_resumes_exactly(
     run = _pretrain(tree, tmp_path / "a", "--epochs", "1")
     out = capsys.readouterr().out
     line = [ln for ln in out.splitlines() if ln.startswith("epoch 0: train")]
-    assert line and "(2 steps" in line[0] and "| val loss" in line[0], out
+    assert line and "[epoch 0] 2 train steps" in out
+    assert "| val loss" in line[0], out
     assert all(math.isfinite(float(p.split()[0]))
                for p in line[0].split("loss")[1:])
     shutil.copytree(run, tmp_path / "reset")
@@ -145,7 +148,7 @@ def test_finetune_from_pretrain_run_then_dense_test(
     out = capsys.readouterr().out
     assert "[transfer_load] loaded" in out
     line = [ln for ln in out.splitlines() if ln.startswith("epoch 0: train")]
-    assert line and "| val loss" in line[0], out
+    assert line and "| val top1" in line[0], out
     (run,) = [p for p in tmp_path.iterdir() if p.is_dir()]
     ft = _final(run, epoch=1)
     pre = _final(reference_run)["state_dict"]
@@ -162,3 +165,85 @@ def test_finetune_from_pretrain_run_then_dense_test(
     # 14 test rows of 16 frames: 4 blocks of 4, windows of 3 blocks at
     # stride 1 (N/2): two a video
     assert "28 windows / 14 videos" in out
+
+
+# the epoch lines of dpc_tpu's CLIs (dpc_tpu/train/pretrain.py:493-495,
+# dpc_tpu/train/evaluate.py:768), which log parsers read
+PRETRAIN_LINE = re.compile(r"^epoch \d+: train loss \d+\.\d{4} top1 "
+                           r"\d\.\d{4} \| val loss \d+\.\d{4} top1 \d\.\d{4}$")
+LC_LINE = re.compile(r"^epoch \d+: train top1 \d\.\d{4} \| val top1 "
+                     r"\d\.\d{4}$")
+
+
+def test_pretrain_picks_best_by_last_five_val_steps(tmp_path, capsys):
+    """Seven val steps: the epoch line and the checkpoint's val_acc are the
+    unweighted means of the last five steps, as in dpc_tpu, not the epoch
+    mean; the line has dpc_tpu's format."""
+    # SMALL without its --steps_per_epoch cap, which would cut val too
+    pretrain.main(["--dataset", "synthetic", "--synthetic_videos", "14",
+                   *SMALL[:-2], "--pred_step", "1", "--nce_impl", "fused",
+                   "--epochs", "1", "--log_dir", str(tmp_path)])
+    out = capsys.readouterr().out
+    val = re.findall(r"^\[val\] epoch 0 \[\d+/7\] loss (\S+) top1 (\S+)",
+                     out, re.M)
+    assert len(val) == 7, out
+    loss, top1 = (np.array([float(v[k]) for v in val]) for k in (0, 1))
+    (line,) = [ln for ln in out.splitlines() if ln.startswith("epoch 0:")]
+    assert PRETRAIN_LINE.match(line), line
+    got_loss = float(line.split("val loss")[1].split()[0])
+    got_top1 = float(line.split("top1")[-1])
+    assert got_loss == pytest.approx(loss[-5:].mean(), abs=2e-4)
+    assert abs(loss[-5:].mean() - loss.mean()) > 1e-3  # the test can tell
+    assert got_top1 == pytest.approx(top1[-5:].mean(), abs=2e-4)
+    (run,) = [p for p in tmp_path.iterdir() if p.is_dir()]
+    assert _final(run, 1)["val_acc"] == pytest.approx(top1[-5:].mean(),
+                                                      abs=2e-4)
+    assert re.search(r"^\[epoch 0\] 7 train steps in \S+ s, 7 val steps$",
+                     out, re.M), out
+
+
+def test_unit_test_keep_short_and_lc_epoch_line(tmp_path, capsys):
+    """--unit_test keeps 32 videos of a longer split (both CLIs);
+    --test_keep_short tests a video shorter than one clip, which the dense
+    test drops by default; the LC epoch line has dpc_tpu's format."""
+    root = write_frame_tree(str(tmp_path / "frames"), num_videos=2,
+                            num_frames=16, num_classes=8, train_rows=40,
+                            test_rows=3, workers=2)
+    split = tmp_path / "frames" / "ucf101" / "test_split01.csv"
+    rows = split.read_text().splitlines()
+    # the clip spans 12 frames: a row of 10 is a short video
+    rows[0] = rows[0].rsplit(",", 1)[0] + ",10"
+    split.write_text("\n".join(rows) + "\n")
+    common = ["--dataset", "ucf101", "--data_root", root, *SMALL,
+              "--log_dir", str(tmp_path / "log")]
+    pretrain.main([*common, "--pred_step", "1", "--nce_impl", "fused",
+                   "--epochs", "1", "--steps_per_epoch", "1",
+                   "--unit_test"])
+    assert "train videos: 32;" in capsys.readouterr().out
+    evaluate.main([*common, "--num_class", "8", "--epochs", "1",
+                   "--steps_per_epoch", "1", "--unit_test"])
+    out = capsys.readouterr().out
+    assert "train videos: 32;" in out
+    (line,) = [ln for ln in out.splitlines() if ln.startswith("epoch 0:")]
+    assert LC_LINE.match(line), line
+    for extra, n in (([], 2), (["--test_keep_short"], 3)):
+        evaluate.main([*common, "--num_class", "8", "--test", "random",
+                       *extra])
+        assert f" / {n} videos in" in capsys.readouterr().out
+
+
+def test_device_augment_epoch_resume_is_exact(tree, tmp_path, capsys):
+    """--device_augment on the CPU: the windows are ROI-decoded with no
+    fallback, the recipe runs in the step with draws seeded per step, and
+    one epoch plus --resume ends bit-equal to two uninterrupted epochs."""
+    aug = ["--device_augment", "--fold_normalize", "on"]
+    ref = _pretrain(tree, tmp_path / "ref", "--epochs", "2", *aug)
+    run = _pretrain(tree, tmp_path / "run", "--epochs", "1", *aug)
+    pretrain.main(["--resume", str(run), "--dataset", "ucf101",
+                   "--data_root", tree, *SMALL, "--pred_step", "1",
+                   "--nce_impl", "fused", "--epochs", "2", *aug])
+    out = capsys.readouterr().out
+    assert "resumed epoch 1" in out
+    _assert_same_params(_final(run)["state_dict"], _final(ref)["state_dict"])
+    assert out.count("[feed] planned-decode fallbacks: {'unplanned': 0, "
+                     "'undecoded': 0}") == 3, out

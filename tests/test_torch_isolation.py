@@ -29,8 +29,8 @@ assert not leaked, leaked
 # frame pipeline, checkpoints and shared loop
 for name in ("models.lc", "ops.maxpool_cuda", "train.finetune_step",
              "train.evaluate", "train.metrics", "native", "data.augment",
-             "data.video_dataset", "data.frame_tree", "core.checkpoint",
-             "train.loop"):
+             "data.video_dataset", "data.frame_tree", "data.device_augment",
+             "core.checkpoint", "train.loop"):
     assert "dpc_tpu_torch." + name in names, name
 print(len(names))
 """

@@ -283,10 +283,23 @@ def test_multistep_restart_lr_matches_jax(milestones):
 
 
 def test_unported_options_raise():
+    """Every option of the LC steps is ported; what they cannot run
+    raises: an unknown fold policy, a device recipe handed f32 clips or no
+    generator, a train_what the reference has not."""
     model = lc.LC(DPCConfig(**SHAPE), CLASSES)
     opt = optim.finetune_optimizer(model, LR, WD)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="fold_normalize"):
         finetune_step.make_finetune_step(
-            DPCConfig(**SHAPE), EvalConfig(device_augment=True), model, opt)
+            DPCConfig(**SHAPE), EvalConfig(device_augment=True,
+                                           fold_normalize="maybe"),
+            model, opt)
+    step = finetune_step.make_finetune_step(
+        DPCConfig(**SHAPE), EvalConfig(device_augment=True), model, opt)
+    clips = torch.zeros(2, 3, 4, 40, 40, 3)
+    labels = torch.zeros(2, dtype=torch.long)
+    with pytest.raises(ValueError, match="uint8"):
+        step(clips, labels, augment_gen=torch.Generator())
+    with pytest.raises(ValueError, match="generator"):
+        step(clips.to(torch.uint8), labels)
     with pytest.raises(ValueError, match="train_what"):
         optim.finetune_optimizer(model, LR, WD, train_what="all")

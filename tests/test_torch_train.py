@@ -85,7 +85,7 @@ def test_unported_options_raise():
     model = dpc.DPC(DPCConfig(**SHAPE))
     opt = optim.pretrain_optimizer(model, LR, WD)
     for bad in (dict(negatives="global"), dict(model_parallel=2),
-                dict(device_augment=True)):
+                dict(cross_replica_bn=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             pretrain_step.make_pretrain_step(
                 DPCConfig(**SHAPE), TrainConfig(batch_size=B, **bad),
@@ -104,11 +104,11 @@ def test_cli_runs_two_steps_on_cpu(tmp_path, capsys):
     line = [ln for ln in out.splitlines() if ln.startswith("epoch 0: train")]
     assert line, out
     loss = float(line[0].split("loss")[1].split()[0])
-    assert math.isfinite(loss) and "(2 steps" in line[0]
+    assert math.isfinite(loss) and "[epoch 0] 2 train steps in" in out
     assert list(tmp_path.glob("*/config.json"))
     with pytest.raises(SystemExit, match="ROADMAP"):
         pretrain.main(["--device", "cpu", "--dataset", "synthetic",
-                       "--device_augment"])
+                       "--negatives", "global"])
 
 
 def test_pretrain_loss_envelope_over_three_steps():
@@ -158,10 +158,13 @@ def test_finetune_cli_trains_validates_and_tests_on_cpu(tmp_path, capsys):
     _finetune_cli(tmp_path, "--batch_size", "2", "--synthetic_videos", "4",
                   "--steps_per_epoch", "2", "--epochs", "1")
     out = capsys.readouterr().out
-    line = [ln for ln in out.splitlines() if ln.startswith("epoch 0: train")]
-    assert line and "(2 steps" in line[0] and "val loss" in line[0], out
-    losses = [float(p.split()[0]) for p in line[0].split("loss")[1:]]
+    line = [ln for ln in out.splitlines() if ln.startswith("[epoch 0] 2 ")]
+    assert line and "val loss" in line[0], out
+    losses = [float(p.split()[0].rstrip(";")) for p in
+              line[0].split("loss")[1:]]
     assert len(losses) == 2 and all(math.isfinite(v) for v in losses)
+    assert any(ln.startswith("epoch 0: train top1") and "| val top1" in ln
+               for ln in out.splitlines()), out
     assert list(tmp_path.glob("*/config.json"))
     _finetune_cli(tmp_path, "--test", "random", "--synthetic_videos", "2")
     out = capsys.readouterr().out
@@ -173,10 +176,11 @@ def test_finetune_cli_trains_validates_and_tests_on_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--device_augment", "--test", "random"], ["--model_parallel", "2"],
-    ["--five_crop", "--test", "random"], ["--num_devices", "4"],
-    ["--multihost", "--test", "random"], ["--device_augment"],
-    ["--five_crop"], ["--num_devices", "2"], ["--multihost"]])
+    ["--model_parallel", "4", "--test", "random"], ["--model_parallel", "2"],
+    ["--num_devices", "2", "--test", "random"], ["--num_devices", "4"],
+    ["--multihost", "--test", "random"], ["--multihost", "--device_augment"],
+    ["--model_parallel", "2", "--five_crop"], ["--num_devices", "2"],
+    ["--multihost"]])
 def test_finetune_cli_rejects_unported_flags(tmp_path, flag):
     args = ["--dataset", "synthetic", *flag]
     with pytest.raises(SystemExit, match="ROADMAP"):
