@@ -35,8 +35,14 @@ def _proc_init(dataset) -> None:
 
 
 def _proc_sample(task):
+    """``(sample, fallbacks)``: the sample and the planned-decode fallbacks
+    it caused, which the worker's copy of the dataset logged (the loader
+    adds them to the parent's, so the parent counts them all)."""
     index, seed = task
-    return _WORKER_DATASET.sample(index, np.random.default_rng(seed))
+    log = getattr(_WORKER_DATASET, "fallbacks", [])
+    seen = len(log)
+    item = _WORKER_DATASET.sample(index, np.random.default_rng(seed))
+    return item, log[seen:]
 
 
 class _Batch:
@@ -218,7 +224,10 @@ class ClipLoader:
                 for slot, f in enumerate(futures):
                     item = f.result()
                     if item is not None:  # a process worker's sample
+                        item, fell = item
                         batch.put(slot, item)
+                        if fell:
+                            self.dataset.fallbacks.extend(fell)
                 if stop.is_set():
                     return
                 out_q.put(batch.result())

@@ -117,8 +117,9 @@ class FrameClipDataset:
         self.class_names = class_names or {}
         self.tail_window = tail_window
         # one reason per sample that fell back from the planned decode
-        # (list.append is atomic, so thread workers need no lock)
-        self._fallbacks: list[str] = []
+        # (list.append is atomic, so thread workers need no lock; process
+        # workers send theirs back with each sample, see data/loader.py)
+        self.fallbacks: list[str] = []
         span = shapes.clip_span(num_seq, seq_len, downsample)
         # the reference drops too-short videos from every split, test
         # included (eval/dataset_3d_lc.py:61-67); keep_short_test keeps
@@ -135,7 +136,7 @@ class FrameClipDataset:
         """Samples of a plan-capable transform decoded in full instead:
         ``unplanned`` (the plan declined the frame size), ``undecoded``
         (the ROI decode failed a frame)."""
-        return {k: self._fallbacks.count(k)
+        return {k: self.fallbacks.count(k)
                 for k in ("unplanned", "undecoded")}
 
     def _frame_path(self, record: VideoRecord, idx: int) -> str:
@@ -231,7 +232,7 @@ class FrameClipDataset:
             first = f.read()
         plan = self.transform.plan(native.jpeg_dims(first), rng)
         if plan is None:
-            self._fallbacks.append("unplanned")
+            self.fallbacks.append("unplanned")
             return None
         buffers = [first]
         for i in flat[1:]:
@@ -241,7 +242,7 @@ class FrameClipDataset:
         out, failures = native.decode_jpeg_batch_scale_crop(
             buffers, short, crop, threads=self.decode_threads)
         if failures:
-            self._fallbacks.append("undecoded")
+            self.fallbacks.append("undecoded")
             return None
         return out
 

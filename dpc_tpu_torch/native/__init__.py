@@ -9,9 +9,7 @@ sources with the same C ABI (``jpeg_common.h``):
     decode of ``dpc_tpu/native/jpeg_decoder.cpp``, pixel for pixel;
   * ``jpeg_nvjpeg.cpp`` where they are not and the CUDA toolkit has
     nvJPEG: one frame at a time on the hybrid backend (entropy decode on
-    the host, IDCT on the GPU), and the batched decodes in one
-    ``nvjpegDecodeBatched`` call on the card's hardware JPEG engines where
-    it has them; the pixels are copied back to host memory.
+    the host, IDCT on the GPU), the pixels copied back to host memory.
 
 There is no OpenCV or PIL chain: when neither library builds, the first
 call raises with the compiler's message.  Exposes :func:`decode_file`,
@@ -110,8 +108,6 @@ def _load() -> ctypes.CDLL:
         u8 = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
         lib.dpc_jpeg_backend.argtypes = []
         lib.dpc_jpeg_backend.restype = ctypes.c_char_p
-        lib.dpc_jpeg_batch_backend.argtypes = []
-        lib.dpc_jpeg_batch_backend.restype = ctypes.c_char_p
         lib.dpc_jpeg_init.argtypes = []
         lib.dpc_jpeg_init.restype = ctypes.c_int
         lib.dpc_jpeg_dims.argtypes = [
@@ -151,13 +147,6 @@ def _load() -> ctypes.CDLL:
 def backend() -> str:
     """'libjpeg' or 'nvjpeg': the library this machine built."""
     return _load().dpc_jpeg_backend().decode()
-
-
-def batch_backend() -> str:
-    """What runs the batched decodes: 'pthread' (libjpeg, a thread pool),
-    'hardware' (nvJPEG on the card's JPEG engines) or 'hybrid' (nvJPEG's
-    hybrid backend, one batched call)."""
-    return _load().dpc_jpeg_batch_backend().decode()
 
 
 def jpeg_dims(data: bytes) -> tuple[int, int]:

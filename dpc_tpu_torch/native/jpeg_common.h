@@ -5,7 +5,6 @@
 // ABI:
 //
 //   const char* dpc_jpeg_backend();                        // the library
-//   const char* dpc_jpeg_batch_backend();                   // what runs a batch
 //   int dpc_jpeg_init();                                    // 0: ready
 //   int dpc_jpeg_dims(data, len, int32 dims[2]);            // (h, w)
 //   int dpc_jpeg_decode_resize(data, len, out, th, tw);     // th/tw <= 0: native

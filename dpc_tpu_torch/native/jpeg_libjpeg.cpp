@@ -38,9 +38,6 @@ extern "C" {
 
 const char* dpc_jpeg_backend() { return "libjpeg"; }
 
-// The batched decodes split the frames over a pthread pool.
-const char* dpc_jpeg_batch_backend() { return "pthread"; }
-
 int dpc_jpeg_init() { return 0; }
 
 // Decode the header only: writes (height, width) into dims; returns 0 ok.

@@ -11,8 +11,8 @@
 // the source span feeding it, which the shared 16.16 bilinear_rgb_roi
 // resamples from the full-size frame (libjpeg resamples from its DCT-scaled
 // frame, so at a scale other than 1 the two backends' pixels differ by the
-// resampling too).  The batched decodes run one nvjpegDecodeBatched call
-// a clip, on the card's hardware JPEG engines where nvJPEG has them.
+// resampling too).  The batched decodes split the frames over
+// jpeg_common.h's pthread pool, one nvJPEG state a thread.
 //
 // Build: g++ -O3 -shared -fPIC -o libdpcjpeg.so jpeg_nvjpeg.cpp
 //   -I$CUDA_HOME/include -L$CUDA_HOME/lib64 -lnvjpeg -lcudart_static
@@ -106,213 +106,6 @@ int image_dims(const uint8_t* data, int64_t len, int* h, int* w) {
   return (*h > 0 && *w > 0) ? 0 : 1;
 }
 
-// The batched decodes: one nvjpegDecodeBatched call for all the frames of a
-// clip, on the card's hardware JPEG engines where nvJPEG offers them
-// (NVJPEG_BACKEND_HARDWARE), else on the hybrid backend.  The frames land
-// in device memory; what the caller keeps (the crop, or the span a scaled
-// crop reads) comes back through a pinned staging buffer in one stream.
-// Any failure (an unsupported or corrupt frame) sends the batch to the
-// per-frame path, which counts the frames that fail.
-nvjpegHandle_t g_batch = nullptr;
-const char* g_batch_name = "none";
-std::once_flag g_batch_once;
-
-void batch_init_once() {
-  if (nvjpegCreateEx(NVJPEG_BACKEND_HARDWARE, nullptr, nullptr, 0,
-                     &g_batch) == NVJPEG_STATUS_SUCCESS) {
-    g_batch_name = "hardware";
-  } else {
-    g_batch = g_handle;
-    g_batch_name = "hybrid";
-  }
-}
-
-struct BatchCtx {
-  nvjpegJpegState_t state = nullptr;
-  cudaStream_t stream = nullptr;
-  int batch = 0;  // the batch size the state is initialised for
-  uint8_t* dbuf = nullptr;
-  size_t dcap = 0;
-  uint8_t* hbuf = nullptr;  // pinned
-  size_t hcap = 0;
-};
-
-std::mutex g_bpool_mu;
-std::vector<BatchCtx*> g_bpool;
-
-BatchCtx* acquire_batch() {
-  std::call_once(g_batch_once, batch_init_once);
-  {
-    std::lock_guard<std::mutex> lock(g_bpool_mu);
-    if (!g_bpool.empty()) {
-      BatchCtx* c = g_bpool.back();
-      g_bpool.pop_back();
-      return c;
-    }
-  }
-  BatchCtx* c = new BatchCtx();
-  if (cudaStreamCreateWithFlags(&c->stream, cudaStreamNonBlocking) !=
-          cudaSuccess ||
-      nvjpegJpegStateCreate(g_batch, &c->state) != NVJPEG_STATUS_SUCCESS)
-    return nullptr;  // leaks the partial context; the caller falls back
-  return c;
-}
-
-void release_batch(BatchCtx* c) {
-  std::lock_guard<std::mutex> lock(g_bpool_mu);
-  g_bpool.push_back(c);
-}
-
-bool reserve_batch(BatchCtx* c, size_t dev_bytes, size_t host_bytes) {
-  if (c->dcap < dev_bytes) {
-    if (c->dbuf) cudaFree(c->dbuf);
-    c->dbuf = nullptr;
-    c->dcap = 0;
-    if (cudaMalloc(reinterpret_cast<void**>(&c->dbuf), dev_bytes) !=
-        cudaSuccess)
-      return false;
-    c->dcap = dev_bytes;
-  }
-  if (c->hcap < host_bytes) {
-    if (c->hbuf) cudaFreeHost(c->hbuf);
-    c->hbuf = nullptr;
-    c->hcap = 0;
-    if (cudaMallocHost(reinterpret_cast<void**>(&c->hbuf), host_bytes) !=
-        cudaSuccess)
-      return false;
-    c->hcap = host_bytes;
-  }
-  return true;
-}
-
-// Decode n frames into c->dbuf, frame i at offs[i] with pitch ws[i]*3;
-// host_bytes of pinned staging are reserved too.  0 on success.
-int batch_decode(BatchCtx* c, const uint8_t* const* datas,
-                 const int64_t* lens, int n, const std::vector<int>& ws,
-                 const std::vector<size_t>& offs, size_t dev_bytes,
-                 size_t host_bytes) {
-  if (!reserve_batch(c, dev_bytes, host_bytes)) return 1;
-  std::vector<nvjpegImage_t> dst(n);
-  std::vector<size_t> sizes(n);
-  for (int i = 0; i < n; ++i) {
-    memset(&dst[i], 0, sizeof(nvjpegImage_t));
-    dst[i].channel[0] = c->dbuf + offs[i];
-    dst[i].pitch[0] = static_cast<unsigned int>(ws[i]) * 3;
-    sizes[i] = static_cast<size_t>(lens[i]);
-  }
-  if (c->batch != n) {
-    if (nvjpegDecodeBatchedInitialize(g_batch, c->state, n, 1,
-                                      NVJPEG_OUTPUT_RGBI) !=
-        NVJPEG_STATUS_SUCCESS)
-      return 1;
-    c->batch = n;
-  }
-  return nvjpegDecodeBatched(g_batch, c->state, datas, sizes.data(),
-                             dst.data(), c->stream) == NVJPEG_STATUS_SUCCESS
-             ? 0
-             : 1;
-}
-
-// The dims of every frame and their offsets in a packed device buffer.
-int batch_layout(const uint8_t* const* datas, const int64_t* lens, int n,
-                 std::vector<int>* hs, std::vector<int>* ws,
-                 std::vector<size_t>* offs, size_t* total) {
-  hs->resize(n);
-  ws->resize(n);
-  offs->resize(n);
-  *total = 0;
-  for (int i = 0; i < n; ++i) {
-    if (image_dims(datas[i], lens[i], &(*hs)[i], &(*ws)[i]) != 0) return 1;
-    (*offs)[i] = *total;
-    *total += static_cast<size_t>((*hs)[i]) * (*ws)[i] * 3;
-  }
-  return 0;
-}
-
-// Batched decode_resize: every frame to (th, tw).  0 on success.
-int batched_resize(const uint8_t* const* datas, const int64_t* lens, int n,
-                   uint8_t* out, int32_t th, int32_t tw) {
-  std::vector<int> hs, ws;
-  std::vector<size_t> offs;
-  size_t total;
-  if (n < 1 || th <= 0 || tw <= 0 ||
-      batch_layout(datas, lens, n, &hs, &ws, &offs, &total) != 0)
-    return 1;
-  BatchCtx* c = acquire_batch();
-  if (c == nullptr) return 1;
-  int rc = 1;
-  if (batch_decode(c, datas, lens, n, ws, offs, total, total) == 0 &&
-      cudaMemcpyAsync(c->hbuf, c->dbuf, total, cudaMemcpyDeviceToHost,
-                      c->stream) == cudaSuccess &&
-      cudaStreamSynchronize(c->stream) == cudaSuccess) {
-    const size_t frame = static_cast<size_t>(th) * tw * 3;
-    for (int i = 0; i < n; ++i)
-      dpc_jpeg::bilinear_rgb(c->hbuf + offs[i], hs[i], ws[i],
-                             out + frame * i, th, tw);
-    rc = 0;
-  }
-  release_batch(c);
-  return rc;
-}
-
-// Batched decode_scale_crop: one window shared by the n frames.  0 on
-// success; 1 (the per-frame path then runs) on any failure, a window
-// outside a frame's scaled image included.
-int batched_scale_crop(const uint8_t* const* datas, const int64_t* lens,
-                       int n, uint8_t* out, int32_t short_side, int32_t cy,
-                       int32_t cx, int32_t ch, int32_t cw) {
-  std::vector<int> hs, ws;
-  std::vector<size_t> offs;
-  size_t total;
-  if (n < 1 || batch_layout(datas, lens, n, &hs, &ws, &offs, &total) != 0)
-    return 1;
-  // per frame: its scaled dims, the source span the window reads, and
-  // where that span sits in the staging buffer
-  std::vector<int> geo(static_cast<size_t>(n) * 6);
-  std::vector<size_t> soff(n);
-  size_t staged = 0;
-  for (int i = 0; i < n; ++i) {
-    int* g = &geo[static_cast<size_t>(i) * 6];  // oh, ow, y_lo, y_hi, x_lo, x_hi
-    dpc_jpeg::shortside_dims(hs[i], ws[i], short_side, &g[0], &g[1]);
-    if (cy < 0 || cx < 0 || ch < 1 || cw < 1 || cy + ch > g[0] ||
-        cx + cw > g[1])
-      return 1;
-    dpc_jpeg::roi_span(hs[i], ws[i], g[0], g[1], cy, cx, ch, cw, &g[2],
-                       &g[3], &g[4], &g[5]);
-    soff[i] = staged;
-    staged += static_cast<size_t>(g[3] - g[2] + 1) * (g[5] - g[4] + 1) * 3;
-  }
-  BatchCtx* c = acquire_batch();
-  if (c == nullptr) return 1;
-  int rc = batch_decode(c, datas, lens, n, ws, offs, total, staged);
-  for (int i = 0; i < n && rc == 0; ++i) {
-    const int* g = &geo[static_cast<size_t>(i) * 6];
-    const int rw = g[5] - g[4] + 1, rh = g[3] - g[2] + 1;
-    const uint8_t* src =
-        c->dbuf + offs[i] + (static_cast<size_t>(g[2]) * ws[i] + g[4]) * 3;
-    if (cudaMemcpy2DAsync(c->hbuf + soff[i], static_cast<size_t>(rw) * 3,
-                          src, static_cast<size_t>(ws[i]) * 3,
-                          static_cast<size_t>(rw) * 3, rh,
-                          cudaMemcpyDeviceToHost, c->stream) != cudaSuccess)
-      rc = 1;
-  }
-  if (rc == 0 && cudaStreamSynchronize(c->stream) != cudaSuccess) rc = 1;
-  const size_t frame = static_cast<size_t>(ch) * cw * 3;
-  for (int i = 0; i < n && rc == 0; ++i) {
-    const int* g = &geo[static_cast<size_t>(i) * 6];
-    if (g[0] == hs[i] && g[1] == ws[i]) {  // scale 1: the span is the crop
-      memcpy(out + frame * i, c->hbuf + soff[i], frame);
-    } else {
-      dpc_jpeg::bilinear_rgb_roi(c->hbuf + soff[i], hs[i], ws[i], g[2], g[4],
-                                 g[3] - g[2] + 1, g[5] - g[4] + 1,
-                                 out + frame * i, g[0], g[1], cy, cx, ch,
-                                 cw);
-    }
-  }
-  release_batch(c);
-  return rc;
-}
-
 }  // namespace
 
 extern "C" {
@@ -370,8 +163,6 @@ int dpc_jpeg_decode_resize(const uint8_t* data, int64_t len, uint8_t* out,
 int dpc_jpeg_decode_batch(const uint8_t* const* datas, const int64_t* lens,
                           int n, uint8_t* out, int32_t th, int32_t tw,
                           int threads) {
-  if (dpc_jpeg_init() == 0 && batched_resize(datas, lens, n, out, th, tw) == 0)
-    return 0;
   return dpc_jpeg::decode_batch(dpc_jpeg_decode_resize, datas, lens, n, out,
                                 th, tw, threads);
 }
@@ -429,21 +220,9 @@ int dpc_jpeg_decode_batch_scale_crop(const uint8_t* const* datas,
                                      int32_t short_side, int32_t cy,
                                      int32_t cx, int32_t ch, int32_t cw,
                                      int threads) {
-  if (dpc_jpeg_init() == 0 &&
-      batched_scale_crop(datas, lens, n, out, short_side, cy, cx, ch, cw) ==
-          0)
-    return 0;
   return dpc_jpeg::decode_batch_scale_crop(dpc_jpeg_decode_scale_crop, datas,
                                            lens, n, out, short_side, cy, cx,
                                            ch, cw, threads);
-}
-
-// "hardware" when the batched decodes run on the card's JPEG engines,
-// "hybrid" when on nvJPEG's hybrid backend.
-const char* dpc_jpeg_batch_backend() {
-  if (dpc_jpeg_init() != 0) return "none";
-  std::call_once(g_batch_once, batch_init_once);
-  return g_batch_name;
 }
 
 // Encode RGB uint8 [h, w, 3] as a baseline 4:2:0 JPEG at `quality` into

@@ -363,6 +363,24 @@ def test_planned_sample_matches_full_decode(tree, mode):
                                                        "undecoded": 0}
 
 
+def test_process_workers_send_their_fallbacks_back(tree):
+    """A planned-decode fallback made in a process worker reaches the
+    parent dataset's count, one per sample the loader yielded."""
+    from dpc_tpu_torch.data.loader import ClipLoader
+
+    tall = augment.HostScaleCrop(240, (250, 224))
+    ds = video_dataset.make_dataset("ucf101", tree, "train", tall, num_seq=2,
+                                    seq_len=3, downsample=2)
+    loader = ClipLoader(ds, 1, num_workers=1, worker_mode="process", seed=0)
+    try:
+        got = list(loader)
+    finally:
+        loader.close(wait=True)
+    assert len(got) == len(ds) == 3
+    assert video_dataset.count_fallbacks(ds) == {"unplanned": 3,
+                                                 "undecoded": 0}
+
+
 def test_loader_fills_batches_in_place_under_contention():
     """More workers than cores and a short switch interval: every batch the
     workers fill in place holds exactly its positions' samples and labels,
