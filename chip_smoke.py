@@ -1,6 +1,7 @@
 """Smoke run of dpc_tpu_torch on one NVIDIA GPU: builds the CUDA kernels,
 holds each against its plain PyTorch version, and drives the DPC pretrain
-step and the LC finetune, eval and dense-test path at their full width.
+step and the LC finetune, eval and dense-test path at their full width,
+the CLIs, and the bench, profiling and debug tools.
 
     python3 chip_smoke.py [--profile PATH]
 
@@ -11,9 +12,11 @@ Phases, each printing its facts before the next starts:
   2. kernels  K-GRU-F/B, K-NCE-F/B and the stem pool's K1/K2/K8 against
               their plain versions on the card, at the pretrain and LC
               shapes, the 6144-row NCE shape, R50's D=1024, a D that is
-              not a multiple of 32, ragged shapes and data with exact ties,
-              with f32 matmul and cuDNN TF32 off; values and grads; the
-              stem activation's layout as the backbone makes it
+              not a multiple of 32, ragged shapes, data with exact ties and
+              data with NaNs (K1 propagates them as dpc_tpu's kernel and
+              ATen do), with f32
+              matmul and cuDNN TF32 off; values and grads; the stem
+              activation's layout as the backbone makes it
   3. step     a small f32 step through the kernels against the same step
               through the plain paths; then the pretrain flagship R18-128,
               B=64, bf16 train step (gru_impl="pallas", nce_impl="fused",
@@ -26,7 +29,7 @@ Phases, each printing its facts before the next starts:
               and 10 timed finetune steps with the launch counts read
               around them, the same step with gru_impl="scan" in turns
               with it, one eval step, and the dense-test forward at window
-              batch 32
+              batch 32 in 5 windows of 10 forwards (best and spread)
   5. cli      python -m dpc_tpu_torch.train.pretrain for 2 synthetic steps;
               python -m dpc_tpu_torch.train.evaluate for 1 epoch of 2 steps
               plus val, then --test random on a few synthetic videos
@@ -52,6 +55,19 @@ Phases, each printing its facts before the next starts:
               reads, the loader alone with the host half, one thread's
               ROI decode, the H2D copy and its overlap, and the recipe's
               time
+  7. tools    each tool at the pretrain flagship through its entry point,
+              in a process of its own that reports its kernel launches
+              (K1-K6 must launch): python -m dpc_tpu_torch.bench (one JSON
+              line, its ms/step within 10% of phase 3's), bench_loop
+              --source device and cached (each within 10% of the bench),
+              bench_breakdown --profile (its full step within 10% of the
+              bench's; every f32 convolution kernel in its profile must be
+              the stem conv's, named by the launching op's shapes),
+              bench_input --decode_only on the synthetic set; then in this
+              process profiling.trace around two steps (the trace must name
+              K1-K6), the stem conv's dtype under the bf16 step,
+              enable_debug raising on a NaN input, and the pretrain CLI
+              with --debug_nans for 2 steps
 Then one JSON line of per-kernel results, the card's name and power limit,
 and a last line {"ok": true, "device": {...}}.  Any failure exits non-zero
 before the last line.  Without a CUDA device it exits 2 and prints no result.
@@ -252,6 +268,7 @@ def _profile_calls(fn, path: str, label: str) -> None:
     logged and appended to ``path``."""
     import torch
     from torch.profiler import ProfilerActivity, profile as prof
+    from dpc_tpu_torch.utils import profiling
 
     fn()
     torch.cuda.synchronize()
@@ -259,9 +276,8 @@ def _profile_calls(fn, path: str, label: str) -> None:
         for _ in range(2):
             fn()
         torch.cuda.synchronize()
-    events = sorted((e for e in p.key_averages()
-                     if e.device_type == torch.autograd.DeviceType.CUDA
-                     and e.self_device_time_total > 0),
+    events = sorted((e for e in profiling.device_events(p)
+                     if e.self_device_time_total > 0),
                     key=lambda e: -e.self_device_time_total)
     def short(key: str) -> str:
         key = key.replace("(anonymous namespace)::", "")
@@ -530,6 +546,34 @@ def check_pool(shape, dtype, ties: bool, timed: bool) -> dict:
     return res
 
 
+def check_pool_nan(dtype) -> None:
+    """K1 and K2 on data with NaNs: K1 gives NaN exactly where its plain
+    version (``dpc_tpu``'s kernel, whose max propagates NaN) and ATen's
+    relu-then-pool do, equal values and codes elsewhere, and K2 routes as
+    its plain version does."""
+    import torch
+    from dpc_tpu_torch.ops import maxpool_cuda as P
+
+    z, gout = _pool_input((64, 64, 64, 64), dtype, False, seed=11)
+    g = torch.Generator(device=z.device).manual_seed(12)
+    z.view(-1)[torch.randint(0, z.numel(), (200,), device=z.device,
+                             generator=g)] = float("nan")
+    out_k, code_k = P.maxpool_relu_fwd(z)
+    out_p, code_p = P.maxpool_relu_fwd_plain(z)
+    aten = _aten_pool(z, True).permute(0, 2, 3, 4, 1)[:, 0]
+    nan_k = out_k.isnan()
+    log(f"[kernels] pool NaN {str(dtype).split('.')[-1]}: "
+        f"{int(nan_k.sum())} NaN windows from {int(z.isnan().sum())} NaN "
+        f"inputs; K1 against plain and ATen, K2 against plain")
+    expect(nan_k.any() and torch.equal(nan_k, out_p.isnan())
+           and torch.equal(nan_k, aten.isnan())
+           and torch.equal(out_k.nan_to_num(), out_p.nan_to_num())
+           and torch.equal(code_k, code_p),
+           "K1 does not propagate NaN as its plain version and ATen do")
+    _grad_err("K2 on NaN data", P.maxpool_relu_bwd(gout, code_k),
+              P.maxpool_relu_bwd_plain(gout, code_p), dtype)
+
+
 def probe_stem_layout() -> None:
     """The stem activation and the gradient reaching the pool, as the LC
     backbone makes them under bf16 autocast."""
@@ -582,6 +626,7 @@ def phase_kernels(profile: str | None = None) -> dict:
         for dt in (bf16, f32):
             check_pool((37, 18, 22, 64), dt, False, timed=False)  # ragged
             check_pool((64, 64, 64, 64), dt, True, timed=False)   # ties
+            check_pool_nan(dt)
         probe_stem_layout()
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -633,6 +678,7 @@ def _profile(fn, path: str | None, label: str) -> None:
         return
     import torch
     from torch.profiler import ProfilerActivity, profile as prof
+    from dpc_tpu_torch.utils import profiling
 
     with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
         t1 = time.perf_counter()
@@ -640,14 +686,11 @@ def _profile(fn, path: str | None, label: str) -> None:
             fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t1)
-    events = [e for e in p.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and not getattr(e, "is_user_annotation", False)]
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    pool_ms = sum(e.self_device_time_total for e in events
+    busy_ms, busy_pct = profiling.device_busy(p, wall_ms)
+    pool_ms = sum(e.self_device_time_total for e in profiling.device_events(p)
                   if "pool" in e.key.lower()) / 1e3
     summary = (f"{label}, 2 steps: wall {wall_ms:.1f} ms, device busy "
-               f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%), stem "
+               f"{busy_ms:.1f} ms ({busy_pct:.1f}%), stem "
                f"pool kernels {pool_ms:.1f} ms "
                f"({100 * pool_ms / max(busy_ms, 1e-9):.1f}% of busy)")
     table = p.key_averages().table(sort_by="self_cuda_time_total",
@@ -719,7 +762,8 @@ def phase_step(profile: str | None) -> dict:
     expect(all(math.isfinite(v) for v in losses), f"non-finite loss {losses}")
     _profile(lambda: step(x, gen), profile, "pretrain R18-128 B=64 bf16")
     _compare_paths(cfg, tcfg, model, step, x, gen)
-    return {"launches": launches, "clips_per_s": n_steps * batch / dt}
+    return {"launches": launches, "clips_per_s": n_steps * batch / dt,
+            "ms_per_step": 1e3 * dt / n_steps}
 
 
 def _in_turns(plain, kernel, batch: int, n: int = 5) -> dict:
@@ -879,6 +923,7 @@ def phase_lc(profile: str | None) -> dict:
     log(f"[lc] eval step: {val}")
     expect(all(math.isfinite(v) for v in val.values()), f"eval {val}")
 
+    # the dense-test forward: 5 windows of 10 forwards, for its spread
     wb, n_fwd = 32, 10
     forward = finetune_step.make_test_forward(cfg, ecfg, model)
     windows = torch.randn(wb, cfg.num_seq, cfg.seq_len, cfg.img_dim,
@@ -886,15 +931,20 @@ def phase_lc(profile: str | None) -> dict:
     for _ in range(2):
         forward(windows)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    logits = [forward(windows) for _ in range(n_fwd)]
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    log(f"[lc] dense-test forward WB={wb}: {n_fwd * wb / dt:.2f} windows/s "
-        f"({1e3 * dt / n_fwd:.1f} ms/forward)")
+    rates = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        logits = [forward(windows) for _ in range(n_fwd)]
+        torch.cuda.synchronize()
+        rates.append(n_fwd * wb / (time.perf_counter() - t0))
+    rates.sort()
+    log(f"[lc] dense-test forward WB={wb}: {rates[-1]:.2f} windows/s best "
+        f"of 5 windows of {n_fwd} ({1e3 * wb / rates[-1]:.1f} ms/forward); "
+        f"windows {[round(r, 2) for r in rates]}, spread "
+        f"{100 * (rates[-1] - rates[0]) / rates[-1]:.1f}%")
     expect(logits[-1].shape == (wb, classes)
            and bool(torch.isfinite(logits[-1]).all()), "dense-test logits")
-    return {"launches": launches}
+    return {"launches": launches, "dense_test_windows_per_s": rates}
 
 
 # ---------------------------------------------------------------------------
@@ -991,28 +1041,21 @@ def _train_losses(out: str) -> dict:
     return {(int(e), int(i)): float(v) for e, i, v in found}
 
 
-def _loader_rate(ds, batch: int, workers: int, mode: str, n_batches: int,
-                 warm: int) -> float:
-    """clips/s of a ClipLoader alone (no device work) over its batches
-    after the first ``warm`` (a process pool's first batch waits for the
-    workers to start; threads start at once)."""
+def _loader_rate(ds, batch: int, workers: int, mode: str,
+                 n_batches: int) -> float:
+    """clips/s of a ClipLoader alone (no device work, batches pinned as
+    the CLIs pin them), measured by ``bench_input.loader_rate``: one batch
+    warms the pool (a process pool's first batch waits for the workers to
+    start), then ``n_batches`` are timed."""
     from dpc_tpu_torch.data.loader import ClipLoader
+    from dpc_tpu_torch.train import bench_input
 
     loader = ClipLoader(ds, batch, num_workers=workers, worker_mode=mode,
-                        seed=0)
-    stamps = [time.perf_counter()]
+                        seed=0, pin_memory=True)
     try:
-        epoch = 0
-        while len(stamps) <= n_batches:
-            loader.set_epoch(epoch)
-            for _ in loader:
-                stamps.append(time.perf_counter())
-                if len(stamps) > n_batches:
-                    break
-            epoch += 1
+        return bench_input.loader_rate(loader, n_batches)
     finally:
         loader.close(wait=True)  # the next measurement wants the cores
-    return (n_batches - warm) * batch / (stamps[-1] - stamps[warm])
 
 
 def check_device_augment(paths, img_dim: int, device: str = "cuda") -> None:
@@ -1394,11 +1437,11 @@ def _frames_device_augment(tmp: Path, data, pre_args, lc_args, paths,
     ds = pretrain.get_dataset(pretrain.config_from_args(
         pretrain.build_parser().parse_args([*data, *pre_args, *aug])),
         "train")
-    for mode, n, warm in (("thread", 6, 1), ("process", 6, 2)):
+    for mode in ("thread", "process"):
         key = f"da_loader_{mode}_clips_per_s"
-        rates[key] = _loader_rate(ds, batch, workers, mode, n, warm)
+        rates[key] = _loader_rate(ds, batch, workers, mode, 5)
         log(f"[frames] loader alone with the host half, {mode} mode, "
-            f"{workers} workers, B={batch}, batches {warm + 1}-{n}: "
+            f"{workers} workers, B={batch}, 5 batches after one: "
             f"{rates[key]:.2f} clips/s")
     buffers = [Path(p).read_bytes() for p in paths]
     plan = ds.transform.plan(native.jpeg_dims(buffers[0]),
@@ -1569,11 +1612,11 @@ def phase_frames(pre_args=FRAMES_PRETRAIN, lc_args=FRAMES_LC,
             pretrain.config_from_args(pretrain.build_parser().parse_args(
                 [*data, *pre_args])), "train")
         batch = int(pre_args[pre_args.index("--batch_size") + 1])
-        for mode, n, warm in (("thread", 2, 0), ("process", 3, 1)):
+        for mode in ("thread", "process"):
             rates[f"loader_{mode}_clips_per_s"] = _loader_rate(
-                train_ds, batch, workers, mode, n, warm)
+                train_ds, batch, workers, mode, 2)
             log(f"[frames] loader alone, {mode} mode, {workers} workers, "
-                f"B={batch}, batches {warm + 1}-{n}: "
+                f"B={batch}, 2 batches after one: "
                 f"{rates[f'loader_{mode}_clips_per_s']:.2f} clips/s")
         paths = sorted(first.glob("*.jpg"))
         t0 = time.perf_counter()
@@ -1600,6 +1643,194 @@ def phase_frames(pre_args=FRAMES_PRETRAIN, lc_args=FRAMES_LC,
         rates.update(_frames_device_augment(
             tmp, data, pre_args, lc_args, paths, workers, device))
     return rates
+
+
+# ---------------------------------------------------------------------------
+# 7. the bench, profiling and debug tools
+# ---------------------------------------------------------------------------
+
+TOOL_TOL = 0.10  # the bench's and the breakdown's step against phase 3's
+# the CUDA kernel each launch counter's wrapper runs, as a trace names it
+TRACE_NAMES = {"maxpool_relu_fwd": "pool_fwd_kernel",
+               "maxpool_relu_bwd": "pool_bwd_kernel",
+               "convgru_fwd": "gru_fwd_scan", "convgru_bwd": "gru_bwd_scan",
+               "nce_fwd": "nce_fwd_kernel", "nce_bwd": "nce_bwd_kernel"}
+
+
+def _run_tool(module: str, argv: list, what: str, kernels=()) -> list:
+    """``python -m module argv`` in a process of its own, with its kernel
+    launch counts reported on stderr by a wrapper that runs the module as
+    ``__main__``; logs its output, fails if it fails or a kernel of
+    ``kernels`` did not launch, and returns its stdout's lines."""
+    code = ("import json, runpy, sys\n"
+            "from dpc_tpu_torch.ops import _build\n"
+            f"sys.argv = {[module, *argv]!r}\n"
+            f"runpy.run_module({module!r}, run_name='__main__', "
+            "alter_sys=True)\n"
+            "print('LAUNCHES ' + json.dumps(_build.LAUNCHES), "
+            "file=sys.stderr)\n")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          env=dict(os.environ, PYTHONPATH=str(ROOT)),
+                          capture_output=True, text=True, timeout=900)
+    lines = proc.stdout.splitlines()
+    for line in lines:
+        log(f"[tools] {what}: {line}")
+    expect(proc.returncode == 0,
+           f"{what} failed ({proc.returncode}): {proc.stderr[-3000:]}")
+    found = re.findall(r"^LAUNCHES (.*)$", proc.stderr, re.M)
+    launches = json.loads(found[-1])
+    log(f"[tools] {what}: {time.perf_counter() - t0:.1f} s; launches "
+        f"{launches}")
+    expect(all(launches[k] > 0 for k in kernels),
+           f"a kernel did not run in {what}: {launches}")
+    return lines
+
+
+def _check_stem_conv_profile(rows: list) -> None:
+    """The breakdown's profile names every f32 convolution kernel by the op
+    that ran it: each must be the stem conv (3 input channels), whose
+    inputs cuDNN converts from bf16 (the conversion kernels of the same
+    op say so)."""
+    f32 = [r for r in rows if "f32f32_f32f32" in r["kernel"]]
+    if not f32:
+        log("[tools] breakdown profile: no f32 convolution kernel")
+    for r in f32:
+        log(f"[tools] f32 kernel {r['kernel'][:100]}: {r['ms'] / 2:.3f} "
+            f"ms/step x{r['count'] // 2}, launched by {r['op']} on "
+            f"{r['shapes'][:2]}")
+        stem = r["shapes"][0][1] == 3 and r["shapes"][1][1:] == [3, 1, 7, 7]
+        expect(r["op"] == "aten::cudnn_convolution" and stem,
+               f"an f32 kernel that is not the stem conv's: {r}")
+        conv = [c for c in rows if c["op"] == r["op"]
+                and c["shapes"] == r["shapes"] and c is not r]
+        for c in conv:
+            log(f"[tools]   with {c['kernel'][:100]}: {c['ms'] / 2:.3f} "
+                f"ms/step")
+        expect(any("__nv_bfloat16" in c["kernel"] for c in conv),
+               "the f32 stem conv's inputs are not bf16")
+
+
+def _trace_and_debug(tmp: Path) -> dict:
+    """``profiling.trace`` around two flagship steps: its Chrome trace must
+    name K1-K6; the stem conv's output dtype under the bf16 step; and
+    ``enable_debug`` on the card: a NaN in the input raises in the step."""
+    import torch
+    from dpc_tpu_torch import bench
+    from dpc_tpu_torch.utils import profiling
+
+    dev = torch.device("cuda")
+    cfg, tcfg, model, step = bench.flagship(dev)
+    x = torch.from_numpy(bench.flagship_batch(cfg, tcfg)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    seen = []
+    hook = model.backbone.conv1.register_forward_hook(
+        lambda mod, inp, out: seen.append((inp[0].dtype, out.dtype)))
+    step(x, gen)
+    hook.remove()
+    log(f"[tools] stem conv under the bf16 step: input {seen[0][0]}, "
+        f"computes in {seen[0][1]} (weights "
+        f"{model.backbone.conv1.weight.dtype})")
+    expect(seen[0][1] == torch.bfloat16, f"the stem conv ran in {seen[0][1]}")
+    with profiling.trace(str(tmp / "trace")):
+        for _ in range(2):
+            step(x, gen)
+    (path,) = (tmp / "trace").glob("*.pt.trace.json")
+    names = {e.get("name", "") for e in json.loads(path.read_text())[
+        "traceEvents"] if e.get("cat") == "kernel"}
+    found = {k: any(v in n for n in names) for k, v in TRACE_NAMES.items()}
+    log(f"[tools] profiling.trace of 2 steps: "
+        f"{path.stat().st_size / 2**20:.1f} MiB, {len(names)} kernel names; "
+        f"the port's kernels: {found}")
+    expect(all(found.values()), f"the trace misses a kernel: {found}")
+    del model, step, x
+    torch.cuda.empty_cache()
+
+    cfg, tcfg, model, step = bench.flagship(dev, batch_size=4, img_dim=64)
+    bad = torch.randn(4, cfg.num_seq, cfg.seq_len, 64, 64, 3, device=dev)
+    bad[0, 0, 0, 0, 0, 0] = float("nan")
+    profiling.enable_debug(nan_checks=True)
+    try:
+        step(bad, gen)
+        raised = None
+    except (FloatingPointError, RuntimeError) as e:
+        raised = e
+    finally:
+        profiling.disable_debug()
+    log(f"[tools] enable_debug, a NaN in the input: {raised!r}")
+    expect(isinstance(raised, FloatingPointError),
+           "enable_debug let a NaN loss through")
+    return {"trace_kernels": found}
+
+
+def phase_tools(step_ms: float) -> dict:
+    """The port's bench, profiling and debug tools on the card at the
+    pretrain flagship, each through its entry point: the bench (one JSON
+    line, its step within TOOL_TOL of phase 3's), the CLIs' epoch loop on a
+    device-resident and on a cached host batch (each within TOOL_TOL of the
+    bench), the breakdown (its full
+    step within TOOL_TOL of the bench's; its profile names the f32
+    convolution), the host feed alone on the synthetic set, a trace of two
+    steps, and the pretrain CLI with --debug_nans."""
+    from dpc_tpu_torch.train import pretrain
+
+    out = {}
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        tmp = Path(tmp)
+        lines = _run_tool("dpc_tpu_torch.bench", [], "bench",
+                          PRETRAIN_KERNELS)
+        expect(len(lines) == 1, f"bench printed {len(lines)} lines, not one")
+        b = json.loads(lines[0])
+        gap = abs(b["ms_per_step"] - step_ms) / step_ms
+        log(f"[tools] bench: {b['value']} clips/s best window, windows "
+            f"{b['windows']}, spread {b['spread_pct']}%, {b['ms_per_step']} "
+            f"ms/step against phase 3's {step_ms:.2f} ({100 * gap:.1f}% "
+            f"apart), peak {b['peak_mem_mib']} MiB, {b['device']}")
+        expect(b["value"] > 0 and gap <= TOOL_TOL,
+               f"bench's step is {100 * gap:.1f}% off phase 3's")
+        out["bench"] = b
+        for source in ("device", "cached"):
+            r = json.loads(_run_tool(
+                "dpc_tpu_torch.train.bench_loop", ["--source", source],
+                f"bench_loop {source}", PRETRAIN_KERNELS)[-1])
+            out[f"loop_{source}"] = r
+            gap = 1 - r["value"] / b["value"]
+            log(f"[tools] bench_loop --source {source}: {r['value']} "
+                f"clips/s, {r['ms_per_step']} ms/step, {100 * gap:.1f}% "
+                "below the bench")
+            # the one-deep drain hides the loop's host work, and the copy
+            # of a cached batch behind the step before
+            expect(r["steps"] == 40 and gap <= TOOL_TOL,
+                   f"bench_loop --source {source} is {100 * gap:.1f}% below "
+                   f"the bench: {r}")
+        prof = tmp / "breakdown.txt"
+        d = json.loads(_run_tool(
+            "dpc_tpu_torch.train.bench_breakdown", ["--profile", str(prof)],
+            "bench_breakdown", PRETRAIN_KERNELS)[-1])
+        out["breakdown"] = d
+        gap = abs(d["full_step"] - b["ms_per_step"]) / b["ms_per_step"]
+        log(f"[tools] bench_breakdown: full_step {d['full_step']} ms against "
+            f"the bench's {b['ms_per_step']} ({100 * gap:.1f}% apart)")
+        expect(gap <= TOOL_TOL, f"the breakdown's full step is "
+                                f"{100 * gap:.1f}% off the bench's")
+        _check_stem_conv_profile(json.loads(Path(
+            str(prof) + ".json").read_text())["rows"])
+        r = json.loads(_run_tool(
+            "dpc_tpu_torch.train.bench_input",
+            ["--decode_only", "--batches", "2"], "bench_input")[-1])
+        out["input"] = r
+        expect(r["value"] > 0, f"bench_input {r}")
+        out.update(_trace_and_debug(tmp))
+    cli = _run_cli(pretrain.main,
+                   ["--dataset", "synthetic", "--nce_impl", "fused",
+                    "--batch_size", "8", "--epochs", "1",
+                    "--steps_per_epoch", "2", "--num_workers", "4",
+                    "--print_freq", "1", "--debug_nans"],
+                   "debug_nans cli", PRETRAIN_KERNELS)
+    import torch
+    expect("[epoch 0] 2 train steps" in cli and not torch.is_anomaly_enabled(),
+           "the --debug_nans CLI did not run 2 steps, or left anomaly mode on")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1750,6 +1981,7 @@ def main(argv=None) -> int:
         lc = phase_lc(args.profile or None)
         phase_cli()
         frames = phase_frames()
+        tools = phase_tools(s["ms_per_step"])
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1757,6 +1989,9 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     log(f"[frames] rates on {smi.stdout.strip()}: {json.dumps(frames)}")
+    log(f"[tools] on {smi.stdout.strip()}: {json.dumps(tools)}")
+    log(f"[lc] dense-test windows/s on {smi.stdout.strip()}: "
+        f"{lc['dense_test_windows_per_s']}")
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps(kernels_line(k, {"pretrain": s["launches"],
                                       "lc": lc["launches"]})))

@@ -98,6 +98,13 @@ struct CodeWord<4> {
 
 constexpr int NT = 256;  // threads per block of K1 and K2
 
+// max(a, b) that returns NaN when either is NaN (fmaxf returns the other)
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
 template <class T>
 __global__ void __launch_bounds__(NT) pool_fwd_kernel(const typename T::word* __restrict__ z,
                                                       typename T::word* __restrict__ out,
@@ -131,18 +138,19 @@ __global__ void __launch_bounds__(NT) pool_fwd_kernel(const typename T::word* __
         float v[VEC];
         load_vec<T>(z + ((m * H + h) * W + w) * C + cv * VEC, v);
 #pragma unroll
-        for (int e = 0; e < VEC; ++e)
-          if (v[e] > best[e]) {
-            best[e] = v[e];
-            idx[e] = (unsigned char)(3 * dh + dw);
-          }
+        for (int e = 0; e < VEC; ++e) {
+          if (v[e] > best[e]) idx[e] = (unsigned char)(3 * dh + dw);
+          best[e] = max_nan(best[e], v[e]);
+        }
       }
     }
+    // the TPU kernel's algorithm: a window that holds a NaN gives NaN and
+    // keeps the code of its last max before the first NaN
     float o[VEC];
 #pragma unroll
     for (int e = 0; e < VEC; ++e) {
-      o[e] = best[e] > 0.f ? best[e] : 0.f;
-      if (!(best[e] > 0.f)) idx[e] = 9;
+      o[e] = (best[e] > 0.f || best[e] != best[e]) ? best[e] : 0.f;
+      if (best[e] <= 0.f) idx[e] = 9;
     }
     store_vec<T>(out + i * VEC, o);
     typename CodeWord<VEC>::type cw;

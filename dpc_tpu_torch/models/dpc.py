@@ -90,9 +90,20 @@ def predict(model: DPC, x: torch.Tensor, *, cfg: DPCConfig,
     if x.ndim != 6:
         raise ValueError("apply_dpc expects [B, num_seq, seq_len, H, W, 3] "
                          f"(6-D, channels-last); got shape {tuple(x.shape)}")
-    ctx = x.shape[1] - cfg.pred_step
     feature_pre = encode_blocks(model, x, cfg, remat=remat,
                                 input_norm=input_norm)
+    return predict_from_features(model, feature_pre, cfg=cfg, train=train,
+                                 generator=generator)
+
+
+def predict_from_features(model: DPC, feature_pre: torch.Tensor, *,
+                          cfg: DPCConfig, train: bool = True,
+                          generator: Optional[torch.Generator] = None
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(pred, gt)`` from the PRE-ReLU block embeddings ``[B, N, ls, ls,
+    D]``: the ConvGRU over the context blocks and the predictor's
+    rollout (the head of ``predict``)."""
+    ctx = feature_pre.shape[1] - cfg.pred_step
     gt = feature_pre[:, ctx:]                       # pre-ReLU
     feature = F.relu(feature_pre)                   # GRU input
     _, last_states = convgru.apply_convgru(

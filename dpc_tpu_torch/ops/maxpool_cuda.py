@@ -20,7 +20,8 @@ even).  The public functions keep the JAX package's NDHWC layout:
 
 The code of an output element is the first maximal window slot ``k = 3·dh +
 dw`` (0-8), or 9 when the window max is ≤ 0 and the ReLU kills the
-gradient.
+gradient.  A window that holds a NaN gives NaN, as ``dpc_tpu``'s kernel
+does, with the code of its last max before the first NaN.
 """
 
 from __future__ import annotations
@@ -82,7 +83,10 @@ def _pad(x: torch.Tensor, fill: float) -> torch.Tensor:
 def maxpool_relu_fwd_plain(z: torch.Tensor
                            ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(relu(maxpool(z)), code)`` of ``z [M, H, W, C]``; compares in f32,
-    the first strict > in window order wins, −inf padding never does."""
+    the first strict > in window order wins, −inf padding never does.  The
+    running max propagates NaN, as ``dpc_tpu``'s kernel's does: a window
+    that holds a NaN gives NaN and keeps the code of its last max before
+    the first NaN."""
     m, h, w, c = _pool_shape(z.shape)
     ho, wo = h // 2, w // 2
     zp = _pad(z.float(), float("-inf"))
@@ -91,12 +95,11 @@ def maxpool_relu_fwd_plain(z: torch.Tensor
     for k in range(9):
         dh, dw = divmod(k, 3)
         win = zp[:, dh:dh + 2 * ho:2, dw:dw + 2 * wo:2]
-        upd = win > best
-        best = torch.where(upd, win, best)
-        code.masked_fill_(upd, k)
-    alive = best > 0
-    code.masked_fill_(~alive, DEAD)
-    out = torch.where(alive, best, torch.zeros_like(best))
+        code.masked_fill_(win > best, k)
+        best = torch.maximum(best, win)
+    code.masked_fill_(best <= 0, DEAD)
+    out = torch.where((best > 0) | best.isnan(), best,
+                      torch.zeros_like(best))
     return out.to(z.dtype), code
 
 

@@ -19,7 +19,9 @@ crops riding the window axis), ``--test_keep_short`` and ``--unit_test``.
 decodes uint8 windows (the scale and crop inside the JPEG decode), the
 finetune and val recipes run in the steps and the test recipe in the test
 forward, whose normalize ``--fold_normalize`` auto folds into the stem
-conv.  Several devices raise (ROADMAP queue 1 item 13).
+conv.  The finetune writes tensorboard scalars and the input grid under
+the run directory where ``tensorboardX`` imports.  Several devices raise
+(ROADMAP queue 1 item 13).
 
 Usage:
   python -m dpc_tpu_torch.train.evaluate --dataset synthetic --epochs 1 \
@@ -464,6 +466,7 @@ def main(argv=None) -> None:
                                                                t.seed + 1)
     print(f"train videos: {len(train_loader.dataset)}; "
           f"val videos: {len(val_loader.dataset)}")
+    writer_train, writer_val = loop.open_tensorboard(exp_dir)
 
     def save_mid_epoch(ep: int, batch_idx: int) -> None:
         ckpt.save_step_unless_duplicate(
@@ -504,6 +507,12 @@ def main(argv=None) -> None:
             def save_from_val(ep, _val_idx):
                 save_mid_epoch(ep, train_done - 1)
 
+            def log_input_grid(batch, epoch=epoch):
+                # once a run, from the batch already in hand
+                # (eval/test.py:232-238)
+                writer_train.add_images("input_seq", loop.input_grid(batch[0]),
+                                        epoch, dataformats="NHWC")
+
             meters, vmeters = MetricBundle(), MetricBundle()
             t0 = time.perf_counter()
             n = loop.run_epoch(
@@ -512,7 +521,9 @@ def main(argv=None) -> None:
                 max_steps=args.steps_per_epoch,
                 start_batch=start_batch if epoch == start_epoch else 0,
                 step_save_fn=save_mid_epoch if step_mgr else None,
-                save_every_steps=args.save_every_steps, guard=guard)
+                save_every_steps=args.save_every_steps, guard=guard,
+                first_batch_fn=(log_input_grid if writer_train is not None
+                                and epoch == start_epoch else None))
             dt = time.perf_counter() - t0
             nv = loop.run_epoch(
                 val_dispatch, val_loader, vmeters, mode="val",
@@ -526,6 +537,12 @@ def main(argv=None) -> None:
             print(f"[epoch {epoch}] {n} train steps in {dt:.1f} s, train "
                   f"loss {tr.get('loss', 0.0):.4f}; {nv} val steps, val "
                   f"loss {va.get('loss', 0.0):.4f}", flush=True)
+            if writer_train is not None:
+                for k, v in tr.items():
+                    writer_train.add_scalar(f"global/{k}", v, epoch)
+                for k, v in va.items():
+                    writer_val.add_scalar(f"global/{k}", v, epoch)
+                writer_train.add_scalar("lr/scale", lr_scale, epoch)
             val_acc = va.get("top1", 0.0)
             best_acc = max(best_acc, val_acc)
             write_log(content=f"train top1 {tr.get('top1', 0.0):.4f}; "
@@ -540,6 +557,7 @@ def main(argv=None) -> None:
     finally:
         train_loader.close()
         val_loader.close()
+        loop.close_tensorboard(writer_train, writer_val)
         if guard is not None:
             guard.uninstall()
     loop.report_fallbacks(train_loader.dataset, val_loader.dataset)

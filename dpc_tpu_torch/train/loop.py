@@ -6,12 +6,15 @@ for the device every step.  Here a step's metrics (0-d device tensors) are
 read only after the NEXT step has been queued: a one-step-deep drain, so
 the host prepares and queues step i+1 while the device runs step i.  Also
 home to what both drivers need to survive: the SIGTERM/SIGINT preemption
-guard and the out-of-memory test behind the ``--remat`` retry.
+guard and the out-of-memory test behind the ``--remat`` retry; and to
+their tensorboard writers, which exist only where ``tensorboardX``
+imports.
 """
 
 from __future__ import annotations
 
 import math
+import os
 import signal
 import time
 
@@ -19,6 +22,7 @@ import numpy as np
 import torch
 
 from dpc_tpu_torch.data.video_dataset import count_fallbacks
+from dpc_tpu_torch.train.metrics import denormalize
 
 
 class PreemptionGuard:
@@ -145,6 +149,68 @@ def report_fallbacks(*datasets) -> None:
         print(f"[feed] planned-decode fallbacks: {fallbacks}", flush=True)
 
 
+def open_tensorboard(exp_dir: str) -> tuple:
+    """``(train writer, val writer)`` under ``exp_dir/img/{train,val}``
+    where ``tensorboardX`` imports; else ``(None, None)`` after a
+    ``tensorboard disabled: ...`` line, and the run goes on without."""
+    try:
+        from tensorboardX import SummaryWriter
+    except ImportError as e:
+        print(f"tensorboard disabled: {e}")
+        return None, None
+    return (SummaryWriter(logdir=os.path.join(exp_dir, "img", "train")),
+            SummaryWriter(logdir=os.path.join(exp_dir, "img", "val")))
+
+
+def close_tensorboard(*writers) -> None:
+    """Flush and close the writers that exist: a preemption's exit must
+    not drop the run's last scalars."""
+    for w in writers:
+        if w is not None:
+            w.close()
+
+
+def input_grid(clips) -> np.ndarray:
+    """The ``input_seq`` image: the first 16 frames of ``clips [..., H, W,
+    3]`` (host array or tensor; the pretrain CLI passes the batch's first
+    clip, the finetune CLI the batch, as ``dpc_tpu``'s), NHWC in [0, 1].
+    Normalised clips are ``denormalize``d; the uint8 windows of
+    ``--device_augment`` are divided by 255 (``denormalize`` would
+    saturate them to white)."""
+    clips = clips.numpy() if isinstance(clips, torch.Tensor) else clips
+    frames = np.asarray(clips).reshape(-1, *clips.shape[-3:])[:16]
+    if frames.dtype == np.uint8:
+        return frames.astype(np.float32) / 255.0
+    return denormalize(frames)
+
+
+class MetricsFetch:
+    """A step's metrics on their way to the host.  Each 0-d CUDA tensor is
+    copied into pinned host memory on the current stream right behind the
+    step that made it, and an event marks the copies' end, so reading the
+    values waits for that step alone.  Reading the device tensors instead
+    would queue the copy behind every step queued since, and wait for them
+    too: the one-deep drain would wait for the step it means to overlap
+    (``dpc_tpu``'s loop starts the same copies with
+    ``copy_to_host_async``).  CPU values pass through."""
+
+    def __init__(self, metrics: dict):
+        self.values, self.event = dict(metrics), None
+        for k, v in metrics.items():
+            if isinstance(v, torch.Tensor) and v.is_cuda:
+                host = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                self.values[k] = host.copy_(v, non_blocking=True)
+                if self.event is None:
+                    self.event = torch.cuda.Event()
+        if self.event is not None:
+            self.event.record()
+
+    def get(self) -> dict[str, float]:
+        if self.event is not None:
+            self.event.synchronize()
+        return {k: float(v) for k, v in self.values.items()}
+
+
 def _rows_of(batch) -> int:
     if isinstance(batch, (tuple, list)):
         batch = batch[0]
@@ -155,30 +221,33 @@ def run_epoch(dispatch, loader, meters, *, mode: str = "train",
               print_freq: int = 5, epoch: int = 0, print_fn=None,
               max_steps: int = 0, start_batch: int = 0,
               step_save_fn=None, save_every_steps: int = 0,
-              guard=None, train: bool = True) -> int:
+              guard=None, first_batch_fn=None, train: bool = True) -> int:
     """Drive one epoch, one step deep.
 
     ``dispatch(idx, batch)`` queues step ``idx`` and returns its metrics as
-    0-d device tensors.  They are read (``float()``) after the following
-    step is queued, so the finite-loss check and the progress line lag the
-    queued step by one.  A non-finite train loss raises; a non-finite val
+    0-d device tensors.  Their copy to the host starts at once
+    (``MetricsFetch``); they are read after the following step is queued,
+    so the finite-loss check and the progress line lag the queued step by
+    one, and the device runs step ``idx + 1`` while the host waits for
+    step ``idx``.  A non-finite train loss raises; a non-finite val
     loss warns, so that a finished train epoch still reaches its
     checkpoint.  ``step_save_fn(epoch, idx)`` persists the state after step
     ``idx``: every ``save_every_steps`` train steps, and on preemption,
     after which the loop exits with ``SystemExit``.  ``print_fn(idx,
-    metrics)`` is called with every printed step.  Returns the number of
-    steps run.
+    metrics)`` is called with every printed step, ``first_batch_fn(batch)``
+    with the epoch's first host batch before it is dispatched.  Returns the
+    number of steps run.
     """
     tic = time.time()
     it = loader.iterate(start_batch) if hasattr(loader, "iterate") \
         else iter(loader)
-    pending = None  # (idx, device metrics, batch rows)
+    pending = None  # (idx, MetricsFetch, batch rows)
     steps = 0
 
     def drain(entry):
         nonlocal tic
-        p_idx, dev_metrics, rows = entry
-        metrics = {k: float(v) for k, v in dev_metrics.items()}
+        p_idx, fetch, rows = entry
+        metrics = fetch.get()
         if not math.isfinite(metrics.get("loss", 0.0)):
             if train:
                 raise FloatingPointError(
@@ -200,12 +269,15 @@ def run_epoch(dispatch, loader, meters, *, mode: str = "train",
     for idx, batch in enumerate(it, start=start_batch):
         if max_steps and idx >= max_steps:
             break
+        if first_batch_fn is not None:
+            first_batch_fn(batch)
+            first_batch_fn = None
         last_idx = idx
-        metrics = dispatch(idx, batch)
+        fetch = MetricsFetch(dispatch(idx, batch))
         steps += 1
         if pending is not None:
             drain(pending)
-        pending = (idx, metrics, _rows_of(batch))
+        pending = (idx, fetch, _rows_of(batch))
         preempted = guard is not None and guard.requested
         # val epochs save only on preemption (the caller's step_save_fn
         # decides what that persists); periodic saves are train-only

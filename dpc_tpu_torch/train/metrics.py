@@ -1,10 +1,12 @@
-"""Meters and the test-time accuracy records (a copy of the parts of
-``dpc_tpu/train/metrics.py`` the evaluation driver uses).
+"""Meters, host-side accuracies and the test-time records (a copy of
+``dpc_tpu/train/metrics.py``).
 
 Averages of per-step metrics with the reference's 5-update sliding
-``local_avg`` (``utils/utils.py:77-113``), the per-class
-accuracy table (``:116-137``), the confusion matrix (``:140-193``; saved
-as text, without the plot) and the markdown log (``:28-36``).
+``local_avg`` (``utils/utils.py:77-113``), the host-side top-k, argmax and
+binary accuracies (``:38-68``), the per-class accuracy table
+(``:116-137``), the confusion matrix (``:140-193``; saved as text, without
+the plot), the input grids' ``denormalize`` (``:70-74``) and the markdown
+log (``:28-36``).
 """
 
 from __future__ import annotations
@@ -12,8 +14,12 @@ from __future__ import annotations
 import os
 import time
 from collections import deque
+from typing import Iterable
 
 import numpy as np
+
+IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
+IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 
 
 class AverageMeter:
@@ -52,11 +58,37 @@ class MetricBundle:
             self.meters.setdefault(
                 k, AverageMeter(self.history)).update(float(v), n)
 
+    def __getitem__(self, k: str) -> AverageMeter:
+        return self.meters[k]
+
     def averages(self) -> dict[str, float]:
         return {k: m.avg for k, m in self.meters.items()}
 
     def local_averages(self) -> dict[str, float]:
         return {k: m.local_avg for k, m in self.meters.items()}
+
+
+def topk_accuracy_np(scores: np.ndarray, targets: np.ndarray,
+                     ks: Iterable[int] = (1, 5)) -> dict[str, float]:
+    """Host-side top-k (``calc_topk_accuracy``, ``utils/utils.py:38``)."""
+    order = np.argsort(-scores, axis=1)
+    out = {}
+    for k in ks:
+        hit = (order[:, :k] == targets[:, None]).any(axis=1)
+        out[f"top{k}"] = float(hit.mean())
+    return out
+
+
+def accuracy_np(scores: np.ndarray, targets: np.ndarray) -> float:
+    """Plain argmax accuracy (``calc_accuracy``, ``utils/utils.py:57``)."""
+    return float((scores.argmax(axis=1) == targets.reshape(-1)).mean())
+
+
+def accuracy_binary_np(scores: np.ndarray, targets: np.ndarray) -> float:
+    """Sigmoid-threshold binary accuracy (``calc_accuracy_binary``,
+    ``utils/utils.py:63``): pred > 0 vs {0, 1} targets."""
+    return float(((scores > 0).astype(np.int64)
+                  == targets.reshape(scores.shape)).mean())
 
 
 class AccuracyTable:
@@ -86,6 +118,12 @@ class ConfusionMeter:
 
     def save(self, path: str) -> None:
         np.savetxt(path, self.mat, fmt="%d")
+
+
+def denormalize(frames: np.ndarray) -> np.ndarray:
+    """Invert ImageNet normalisation for logging (``utils/utils.py:70-74``).
+    frames: [..., H, W, 3] normalised → [0, 1] clipped."""
+    return np.clip(frames * IMAGENET_STD + IMAGENET_MEAN, 0.0, 1.0)
 
 
 def write_log(content: str, epoch: int, filename: str) -> None:

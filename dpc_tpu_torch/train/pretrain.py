@@ -12,10 +12,13 @@ a retry with activation checkpointing (``--remat``) when the first step
 runs out of device memory, and ``--device_augment``: the host half decodes
 uint8 windows (the scale and crop inside the JPEG decode), the recipe runs
 on the device inside the steps, and ``--fold_normalize`` may fold its
-normalize into the stem conv.  The dropout and augmentation draws and the
-loader's order are derived from (seed, epoch, batch), so a resumed run
-computes what the uninterrupted run did.  Several devices raise (ROADMAP
-queue 1 item 13).
+normalize into the stem conv.  Tensorboard scalars and the input grid
+go under the run directory where ``tensorboardX`` imports;
+``--debug_nans`` turns on autograd's anomaly mode and a finite-loss check
+in every step; ``--profile`` profiles the second train epoch.  The dropout
+and augmentation draws and the loader's order are derived from (seed,
+epoch, batch), so a resumed run computes what the uninterrupted run did.
+Several devices raise (ROADMAP queue 1 item 13).
 
 Usage:
   python -m dpc_tpu_torch.train.pretrain --dataset synthetic --epochs 1 \
@@ -46,6 +49,7 @@ from dpc_tpu_torch.data.video_dataset import make_dataset
 from dpc_tpu_torch.models import dpc as dpc_model
 from dpc_tpu_torch.train import loop, optim, pretrain_step
 from dpc_tpu_torch.train.metrics import MetricBundle
+from dpc_tpu_torch.utils import profiling
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -110,8 +114,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--log_dir", default="log")
     p.add_argument("--profile", default="",
                    help="write a torch.profiler table of the run's second "
-                        "train epoch to this file and print its clips/s "
-                        "and the device's busy share")
+                        "train epoch to this file, and a Chrome trace beside "
+                        "it, and print its clips/s and the device's busy "
+                        "share")
+    p.add_argument("--debug_nans", action="store_true",
+                   help="anomaly mode: raise on the first NaN or Inf in the "
+                        "loss or in a backward function (slow)")
     # addition of dpc_tpu_torch
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; cuda without a card fails")
@@ -206,45 +214,25 @@ def get_dataset(cfg: ExperimentConfig, mode: str, unit_test: bool = False):
                         unit_test=unit_test, val_subsample=d.val_subsample)
 
 
-def _profile_epoch(path: str):
-    """Start a torch.profiler; returns ``finish(steps, batch_size)``, which
-    writes its table to ``path``, the device time of every kernel name (ms
-    over the window) to ``path + '.json'``, and prints the epoch's train
-    clips/s and the device's busy share (kernel time over wall time, the
-    waits for the loader included; the JPEG codec's kernels count where
-    they run on the same card)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
-                                     if torch.cuda.is_available() else [])
-    prof = profile(activities=acts)
-    prof.start()
-    t0 = time.perf_counter()
-
-    def finish(steps: int, batch_size: int) -> None:
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-        prof.stop()
-        # device work only: the GPU ranges of user annotations (the
-        # optimizer's step, for one) would count their kernels twice
-        events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and not getattr(e, "is_user_annotation", False)]
-        busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-        summary = (f"{steps} train steps: wall {wall_ms:.1f} ms, "
-                   f"{1e3 * steps * batch_size / wall_ms:.2f} clips/s, "
-                   f"device busy {busy_ms:.1f} ms "
-                   f"({100 * busy_ms / wall_ms:.1f}%)")
-        with open(path, "a") as f:
-            f.write(summary + "\n" + prof.key_averages().table(
-                sort_by="self_cuda_time_total", row_limit=40) + "\n")
-        with open(path + ".json", "w") as f:
-            json.dump({"steps": steps, "wall_ms": wall_ms, "kernels_ms": {
-                e.key: e.self_device_time_total / 1e3 for e in events}}, f)
-        print(f"[profile] {summary}; table in {path}", flush=True)
-
-    return finish
+def write_profile(path: str, prof, steps: int, batch_size: int,
+                  wall_ms: float) -> None:
+    """Write a profile's table to ``path`` and the device time of every
+    kernel name (ms over the window) to ``path + '.json'``, and print the
+    window's train clips/s and the device's busy share (``profiling.
+    device_busy``; the waits for the loader count as idle, the JPEG
+    codec's kernels as busy where they run on the same card)."""
+    busy_ms, busy_pct = profiling.device_busy(prof, wall_ms)
+    summary = (f"{steps} train steps: wall {wall_ms:.1f} ms, "
+               f"{1e3 * steps * batch_size / wall_ms:.2f} clips/s, "
+               f"device busy {busy_ms:.1f} ms ({busy_pct:.1f}%)")
+    with open(path, "a") as f:
+        f.write(summary + "\n" + prof.key_averages().table(
+            sort_by="self_cuda_time_total", row_limit=40) + "\n")
+    with open(path + ".json", "w") as f:
+        json.dump({"steps": steps, "wall_ms": wall_ms, "kernels_ms": {
+            e.key: e.self_device_time_total / 1e3
+            for e in profiling.device_events(prof)}}, f)
+    print(f"[profile] {summary}; table in {path}", flush=True)
 
 
 def main(argv=None) -> None:
@@ -332,6 +320,7 @@ def main(argv=None) -> None:
                                                                t.seed + 1)
     print(f"train videos: {len(train_loader.dataset)}; "
           f"val videos: {len(val_loader.dataset)}")
+    writer_train, writer_val = loop.open_tensorboard(exp_dir)
 
     def save_mid_epoch(ep: int, batch_idx: int) -> None:
         ckpt.save_step_unless_duplicate(
@@ -343,6 +332,8 @@ def main(argv=None) -> None:
                      "iteration": iteration})
 
     guard = loop.PreemptionGuard().install() if step_mgr else None
+    if args.debug_nans:
+        profiling.enable_debug(nan_checks=True)
     try:
         for epoch in range(start_epoch, t.epochs):
             train_loader.set_epoch(epoch)
@@ -366,7 +357,19 @@ def main(argv=None) -> None:
 
             def count_iteration(idx, metrics):
                 nonlocal iteration
+                if writer_train is not None:
+                    writer_train.add_scalar("local/loss", metrics["loss"],
+                                            iteration)
+                    writer_train.add_scalar("local/accuracy",
+                                            metrics["top1"], iteration)
                 iteration += 1
+
+            def log_input_grid(batch, epoch=epoch):
+                # once a run, from the batch already in hand
+                # (dpc/main.py:200-206)
+                writer_train.add_images("input_seq",
+                                        loop.input_grid(batch[0]),
+                                        epoch, dataformats="NHWC")
 
             # a preemption during val persists the finished train epoch:
             # resume then skips the train batches and lands in val
@@ -378,20 +381,26 @@ def main(argv=None) -> None:
                 save_mid_epoch(ep, train_done - 1)
 
             # the run's second train epoch: every step after its first
-            finish = (_profile_epoch(args.profile)
-                      if args.profile and epoch == start_epoch + 1 else None)
+            profiled = bool(args.profile) and epoch == start_epoch + 1
             meters, vmeters = MetricBundle(), MetricBundle()
-            t0 = time.perf_counter()
-            n = loop.run_epoch(
-                train_dispatch, train_loader, meters, mode="train",
-                print_freq=t.print_freq, epoch=epoch,
-                print_fn=count_iteration, max_steps=args.steps_per_epoch,
-                start_batch=start_batch if epoch == start_epoch else 0,
-                step_save_fn=save_mid_epoch if step_mgr else None,
-                save_every_steps=args.save_every_steps, guard=guard)
-            dt = time.perf_counter() - t0
-            if finish is not None:
-                finish(n, t.batch_size)
+            with profiling.trace(os.path.dirname(os.path.abspath(
+                    args.profile)) if profiled else None) as prof:
+                t0 = time.perf_counter()
+                n = loop.run_epoch(
+                    train_dispatch, train_loader, meters, mode="train",
+                    print_freq=t.print_freq, epoch=epoch,
+                    print_fn=count_iteration,
+                    max_steps=args.steps_per_epoch,
+                    start_batch=start_batch if epoch == start_epoch else 0,
+                    step_save_fn=save_mid_epoch if step_mgr else None,
+                    save_every_steps=args.save_every_steps, guard=guard,
+                    first_batch_fn=(log_input_grid if writer_train is not None
+                                    and epoch == start_epoch else None))
+                if prof is not None:
+                    profiling.synchronize(device)
+                dt = time.perf_counter() - t0
+            if prof is not None:
+                write_profile(args.profile, prof, n, t.batch_size, 1e3 * dt)
             nv = loop.run_epoch(
                 val_dispatch, val_loader, vmeters, mode="val",
                 print_freq=t.print_freq, epoch=epoch,
@@ -406,6 +415,11 @@ def main(argv=None) -> None:
                   f"{va.get('loss', 0):.4f} top1 {va.get('top1', 0):.4f}")
             print(f"[epoch {epoch}] {n} train steps in {dt:.1f} s, {nv} val "
                   "steps", flush=True)
+            if writer_train is not None:
+                for k, v in tr.items():
+                    writer_train.add_scalar(f"global/{k}", v, epoch)
+                for k, v in va.items():
+                    writer_val.add_scalar(f"global/{k}", v, epoch)
             val_acc = va.get("top1", 0.0)
             best_acc = max(best_acc, val_acc)
             mgr.save(epoch + 1,
@@ -417,6 +431,9 @@ def main(argv=None) -> None:
     finally:
         train_loader.close()
         val_loader.close()
+        loop.close_tensorboard(writer_train, writer_val)
+        if args.debug_nans:
+            profiling.disable_debug()
         if guard is not None:
             guard.uninstall()
     loop.report_fallbacks(train_loader.dataset, val_loader.dataset)

@@ -24,6 +24,7 @@ from dpc_tpu_torch.core.config import DPCConfig, TrainConfig
 from dpc_tpu_torch.data import device_augment
 from dpc_tpu_torch.models import dpc
 from dpc_tpu_torch.ops import nce, nce_cuda
+from dpc_tpu_torch.utils import profiling
 
 
 def resolve_nce_impl(train_cfg: TrainConfig, model_cfg: DPCConfig,
@@ -96,7 +97,9 @@ def make_pretrain_step(model_cfg: DPCConfig, train_cfg: TrainConfig,
     from the CPU ``torch.Generator`` ``augment_gen``.  ``generator``: a
     ``torch.Generator`` on that device for the GRU dropout (None: no
     dropout).  Returns ``{loss, top1, top3, top5}`` as 0-d tensors on the
-    device; the parameters are updated in place.  ``train_cfg.remat``
+    device; the parameters are updated in place.  Under
+    ``profiling.enable_debug`` (``--debug_nans``) a non-finite loss raises
+    before the backward.  ``train_cfg.remat``
     recomputes the backbone's activations in the backward (activation
     checkpointing; the backbone draws no dropout and keeps no running
     statistics, so the recomputation is exact).
@@ -104,7 +107,7 @@ def make_pretrain_step(model_cfg: DPCConfig, train_cfg: TrainConfig,
     _check_supported(train_cfg)
     device = next(model.parameters()).device
     augment, input_norm = make_augment(model_cfg, train_cfg)
-    loss_fn = _nce_fn(model_cfg, train_cfg, device)
+    loss_fn = make_nce_loss(model_cfg, train_cfg, device)
     bf16 = model_cfg.compute_dtype == "bfloat16"
     if model_cfg.compute_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"compute_dtype {model_cfg.compute_dtype!r}")
@@ -124,6 +127,8 @@ def make_pretrain_step(model_cfg: DPCConfig, train_cfg: TrainConfig,
                                    remat=train_cfg.remat,
                                    input_norm=input_norm)
         loss, metrics = loss_fn(pred, gt)
+        if profiling.nan_checks_on():  # --debug_nans
+            profiling.check_finite(loss)
         loss.backward()
         optimizer.step()
         return {"loss": loss.detach(), **metrics}
@@ -131,8 +136,8 @@ def make_pretrain_step(model_cfg: DPCConfig, train_cfg: TrainConfig,
     return step
 
 
-def _nce_fn(model_cfg: DPCConfig, train_cfg: TrainConfig,
-            device: torch.device) -> Callable[..., tuple]:
+def make_nce_loss(model_cfg: DPCConfig, train_cfg: TrainConfig,
+                  device: torch.device) -> Callable[..., tuple]:
     """``loss_fn(pred, gt) -> (loss, {top1, top3, top5})`` over the local
     batch, through the flash kernels or the materialised score as
     ``resolve_nce_impl`` picks."""
@@ -162,7 +167,7 @@ def make_eval_step(model_cfg: DPCConfig, train_cfg: TrainConfig,
     _check_supported(train_cfg)
     device = next(model.parameters()).device
     augment, input_norm = make_augment(model_cfg, train_cfg)
-    loss_fn = _nce_fn(model_cfg, train_cfg, device)
+    loss_fn = make_nce_loss(model_cfg, train_cfg, device)
     bf16 = model_cfg.compute_dtype == "bfloat16"
     if model_cfg.compute_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"compute_dtype {model_cfg.compute_dtype!r}")

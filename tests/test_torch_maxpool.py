@@ -85,6 +85,31 @@ def test_relu_gate_kills_dead_windows():
     assert (code == P.DEAD).all()
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_nan_windows_match_pallas(dtype):
+    """A window that holds a NaN gives NaN, as dpc_tpu's kernel (whose max
+    propagates NaN) and ATen's relu-then-pool do, with dpc_tpu's code; the
+    rest is untouched.  A pool that turned NaN into 0 would hide a NaN
+    from the loss and from --debug_nans."""
+    z, zj = _pair((4, 8, 12, 8), dtype, seed=21)
+    flat = np.random.default_rng(22).integers(0, z.numel(), 12)
+    z.view(-1)[torch.tensor(flat)] = float("nan")
+    zj = jnp.asarray(z.float().numpy()).astype(DTYPES[dtype][1])
+    out, code = P.maxpool_relu_fwd(z)
+    jout, jcode = maxpool_pallas._run_fwd(zj)
+    jout = _np(jout)
+    aten = F.max_pool3d(F.relu(z.float().permute(0, 3, 1, 2).unsqueeze(2)),
+                        (1, 3, 3), (1, 2, 2), (0, 1, 1))
+    aten = aten.squeeze(2).permute(0, 2, 3, 1)
+    nan = out.float().isnan()
+    assert 0 < int(nan.sum()) < nan.numel()
+    np.testing.assert_array_equal(nan.numpy(), np.isnan(jout))
+    np.testing.assert_array_equal(nan.numpy(), aten.isnan().numpy())
+    np.testing.assert_array_equal(out.float().nan_to_num().numpy(),
+                                  np.nan_to_num(jout))
+    np.testing.assert_array_equal(code.numpy(), np.asarray(jcode))
+
+
 def test_gradient_on_tie_free_data_matches_torch_autograd():
     z, _ = _pair((2, 3, 8, 10, 8), "float32", seed=2)
     g = torch.tensor(np.random.default_rng(4).normal(
