@@ -12,7 +12,8 @@ Phases, each printing its facts before the next starts:
   2. kernels  K-GRU-F/B, K-NCE-F/B and the stem pool's K1/K2/K8 against
               their plain versions on the card, at the pretrain and LC
               shapes, the 6144-row NCE shape, R50's D=1024, a D that is
-              not a multiple of 32, ragged shapes, data with exact ties and
+              not a multiple of 32, ragged shapes, a rank's tile of
+              {data:2} global negatives (1536x3072), data with exact ties and
               data with NaNs (K1 propagates them as dpc_tpu's kernel and
               ATen do), with f32
               matmul and cuDNN TF32 off; values and grads; the stem
@@ -68,6 +69,22 @@ Phases, each printing its facts before the next starts:
               K1-K6), the stem conv's dtype under the bf16 step,
               enable_debug raising on a NaN input, and the pretrain CLI
               with --debug_nans for 2 steps
+  8. ranks    K7 (the candidate-sharded NCE, nce_lse_rank_shard on the
+              K5/K6 kernels) against its plain version at 3072x1536 and
+              1536x1536, half the targets -1, and two K7 shards combined
+              against K5/K6 unsharded at 3072x3072; then two ranks on the
+              one card over gloo (NCCL refuses two ranks on one device),
+              spawned through parallel/mesh.py: the R18-128 B64 bf16 step
+              in four layouts ({data:2} local, global, cross_replica_bn;
+              {data:1, model:2} global), nce_impl fused, 2 warm-up and 5
+              timed steps each with the launches read around them (K1-K6,
+              K7 on the model axis, on every rank), finite losses and
+              bit-identical parameters across the ranks, and clips/s (two
+              ranks sharing one card, not a multi-GPU rate); the same
+              layouts in f32 at a small size, {data:1, model:2} held
+              against one rank; the pretrain CLI with --num_devices 1
+              --negatives global --cross_replica_bn, and its refusal of
+              --num_devices 2 on one card
 Then one JSON line of per-kernel results, the card's name and power limit,
 and a last line {"ok": true, "device": {...}}.  Any failure exits non-zero
 before the last line.  Without a CUDA device it exits 2 and prints no result.
@@ -77,6 +94,8 @@ flagship steps, and the device time of each kernel inside K-GRU-F/B at the
 pretrain and LC shapes, to PATH.  --rates ROOT only times the two flagship steps of
 the dpc_tpu_torch under ROOT and prints one JSON line of clips/s: run it
 for two checkouts in turns (a, b, b, a) in one call to compare commits.
+--nccl N only runs the pretrain step of phase 8 and the pretrain CLI on N
+cards of one host over NCCL, one rank a card, and prints their clips/s.
 --cli_rates RECIPE=ROOT (repeatable) only prints the pretrain CLI's clips/s
 and busy share on a frame tree with RECIPE (device_augment or host), for
 this checkout and the one under ROOT in turns (ROOT, here, here, ROOT).
@@ -619,6 +638,7 @@ def phase_kernels(profile: str | None = None) -> dict:
         check_nce(1536, 1536, 1024, 0, timed=True)     # R50's D
         check_nce(640, 640, 200, 3, timed=False)       # D % 32 != 0
         check_nce(1000, 1500, 256, 37, timed=False)    # ragged
+        check_nce(1536, 3072, 256, 0, timed=True)      # {data:2} global rank
         pool = check_pool((1280, 64, 64, 64), bf16, False, timed=True)  # LC
         for dt in (bf16, f32):                         # pretrain
             check_pool((2560, 64, 64, 64), dt, False, timed=True)
@@ -1834,6 +1854,422 @@ def phase_tools(step_ms: float) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 8. ranks: K7, and the pretrain step on two ranks that share the card
+# ---------------------------------------------------------------------------
+
+# the full-width layouts on two ranks: (name, model axis, TrainConfig fields)
+RANK_LAYOUTS = (
+    ("data2_local", 1, dict(negatives="local")),
+    ("data2_global", 1, dict(negatives="global")),
+    ("data2_xbn", 1, dict(negatives="local", cross_replica_bn=True)),
+    ("data1_model2", 2, dict(negatives="global")),
+)
+RANK_STEPS = 5
+SHARD_KERNELS = ("convgru_fwd", "convgru_bwd", "nce_fwd_shard",
+                 "nce_bwd_shard", "maxpool_relu_fwd", "maxpool_relu_bwd")
+
+
+def _nce_case(r, c, d, seed, device: str = "cuda"):
+    import torch
+
+    dev = torch.device(device)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rows = 0.25 * torch.randn(r, d, device=dev, generator=g)
+    cols = 0.25 * torch.randn(c, d, device=dev, generator=g)
+    return rows, cols, g
+
+
+def check_nce_shard(r, c, d, timed: bool, device: str = "cuda") -> dict:
+    """K7 against its plain version at a candidate shard's shape, with the
+    positive on this shard for half the rows and -1 (another shard's) for
+    the others: lse, rank, drows, dcols; the gradient for pos is 0."""
+    import torch
+    from dpc_tpu_torch.ops import nce_cuda as N
+
+    rows, cols, g = _nce_case(r, c, d, r + 2 * c, device)
+    t = torch.arange(r, device=rows.device) % c
+    owned = torch.arange(r, device=rows.device) % 2 == 0
+    targets = torch.where(owned, t, -1).int()
+    # the positive of an odd row lies on another shard
+    other = 0.25 * torch.randn(r, d, device=rows.device, generator=g)
+    pos = torch.where(owned, (rows * cols[t]).sum(-1),
+                      (rows * other).sum(-1))
+    gl = torch.randn(r, device=rows.device, generator=g) / r
+    got, want = {}, {}
+    for out, fn in ((got, N.nce_lse_rank_shard),
+                    (want, N.nce_lse_rank_shard_plain)):
+        a, b = rows.clone().requires_grad_(), cols.clone().requires_grad_()
+        p = pos.clone().requires_grad_()
+        lse, rank = fn(a, b, p, targets)
+        (lse * gl).sum().backward()
+        out.update(lse=lse.detach(), rank=rank, drows=a.grad, dcols=b.grad,
+                   dpos=p.grad)
+    rank_diff = (got["rank"] - want["rank"]).abs()
+    n_rank = int((rank_diff > 0).sum())
+    errs = {k: rel_err(got[k], want[k]) for k in ("lse", "drows", "dcols")}
+    log(f"[ranks] K7 R={r} C={c} D={d}, half the targets -1: rel err "
+        + " ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + f"; rank differs on {n_rank} rows (max "
+        f"{float(rank_diff.max()):.0f}); |dpos| "
+        f"{float(got['dpos'].abs().max()):.1e}")
+    expect(errs["lse"] <= TOL_VALUE, f"K7 lse disagrees: {errs}")
+    expect(n_rank <= RANK_ROWS * r and float(rank_diff.max()) <= 2,
+           f"K7 rank disagrees on {n_rank} rows")
+    expect(errs["drows"] <= TOL_GRAD and errs["dcols"] <= TOL_GRAD,
+           f"K7's backward disagrees: {errs}")
+    expect(float(got["dpos"].abs().max()) == 0.0, "K7 gives pos a gradient")
+    res = {"fwd_err": float((got["lse"] - want["lse"]).abs().max()),
+           "bwd_err": max(float((got[k] - want[k]).abs().max())
+                          for k in ("drows", "dcols"))}
+    if timed:
+        lse_p = want["lse"]
+        fwd_bytes, fwd_ops = 4 * ((r + c) * d + 4 * r), 2 * r * c * d
+        bwd_bytes, bwd_ops = 4 * (2 * (r + c) * d + 2 * r), 6 * r * c * d
+        res["fwd"] = dict(
+            ms=cuda_ms(lambda: N.nce_forward(rows, cols, pos, targets,
+                                             count_as="nce_fwd_shard")),
+            plain_ms=cuda_ms(lambda: N.nce_forward_plain(rows, cols, pos,
+                                                         targets)),
+            library_ms=cuda_ms(lambda: torch.logsumexp(rows @ cols.t(), -1)),
+            bound=bound_ms(fwd_bytes, 3 * fwd_ops, TF32_FLOPS))
+        res["bwd"] = dict(
+            ms=cuda_ms(lambda: N.nce_backward(rows, cols, lse_p, gl,
+                                              count_as="nce_bwd_shard")),
+            plain_ms=cuda_ms(lambda: N.nce_backward_plain(rows, cols, lse_p,
+                                                          gl)),
+            library_ms=None,
+            bound=bound_ms(bwd_bytes, 3 * bwd_ops, TF32_FLOPS))
+        log(f"[ranks] K7 R={r} C={c} D={d}: fwd {res['fwd']['ms']:.3f} ms "
+            f"(plain {res['fwd']['plain_ms']:.3f}, matmul+logsumexp "
+            f"{res['fwd']['library_ms']:.3f}, bound "
+            f"{res['fwd']['bound'][0]:.4f} 3xTF32); bwd "
+            f"{res['bwd']['ms']:.3f} ms (plain {res['bwd']['plain_ms']:.3f}, "
+            f"bound {res['bwd']['bound'][0]:.4f} 3xTF32)")
+    return res
+
+
+def check_shard_combine(n: int = 3072, d: int = 256,
+                        device: str = "cuda") -> None:
+    """Two K7 shards combined (logsumexp of their lse, sum of their ranks)
+    against K5/K6 unsharded at n²: loss, top-k and both gradients."""
+    import torch
+    from dpc_tpu_torch.ops import nce_cuda as N
+
+    rows, cols, _ = _nce_case(n, n, d, 7, device)
+    targets = torch.arange(n, device=rows.device, dtype=torch.int32)
+    half = n // 2
+    out = {}
+    for name in ("full", "sharded"):
+        a, b = rows.clone().requires_grad_(), cols.clone().requires_grad_()
+        if name == "full":
+            lse, pos, rank = N.nce_lse_rank(a, b, targets)
+        else:
+            pos = (a * b[targets.long()]).sum(-1)
+            parts = []
+            for s in range(2):
+                local = targets - s * half
+                owned = (local >= 0) & (local < half)
+                parts.append(N.nce_lse_rank_shard(
+                    a, b[s * half:(s + 1) * half], pos,
+                    torch.where(owned, local, -1).int()))
+            lse = torch.logsumexp(torch.stack([p[0] for p in parts]), 0)
+            rank = parts[0][1] + parts[1][1]
+        loss = (lse - pos).mean()
+        loss.backward()
+        out[name] = dict(loss=loss.detach(), rank=rank, drows=a.grad,
+                         dcols=b.grad)
+    f, s = out["full"], out["sharded"]
+    errs = {k: rel_err(s[k], f[k]) for k in ("loss", "drows", "dcols")}
+    topk = {k: abs(float((s["rank"] < k).float().mean()
+                         - (f["rank"] < k).float().mean())) for k in (1, 3, 5)}
+    log(f"[ranks] two K7 shards combined against K5/K6 at {n}x{n}: rel err "
+        + " ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + f"; top-k gaps {topk}")
+    expect(errs["loss"] <= TOL_VALUE, f"the K7 combine's loss: {errs}")
+    expect(errs["drows"] <= TOL_GRAD and errs["dcols"] <= TOL_GRAD,
+           f"the K7 combine's gradients: {errs}")
+    expect(max(topk.values()) <= RANK_ROWS, f"the K7 combine's top-k {topk}")
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _rank_layout(mesh, cfg, fields, batch, steps, device="cuda", save=None):
+    """One layout on this rank: a model from seed 0, the step, 2 warm-up
+    steps and ``steps`` timed ones with the launch counts set to 0 just
+    before them and read just after."""
+    import torch
+    from dpc_tpu_torch.core.config import TrainConfig
+    from dpc_tpu_torch.models import dpc
+    from dpc_tpu_torch.ops import _build
+    from dpc_tpu_torch.parallel import mesh as meshlib
+    from dpc_tpu_torch.parallel.dryrun import param_digest
+    from dpc_tpu_torch.train import optim, pretrain_step
+
+    dev = torch.device(device)
+    tcfg = TrainConfig(batch_size=batch, lr=1e-3, wd=1e-5, nce_impl="fused",
+                       model_parallel=mesh.n_model, **fields)
+    model = dpc.build_dpc(cfg, dev, seed=0)
+    opt = optim.pretrain_optimizer(model, tcfg.lr, tcfg.wd)
+    step = pretrain_step.make_pretrain_step(cfg, tcfg, model, opt, mesh)
+    x = torch.randn(batch, cfg.num_seq, cfg.seq_len, cfg.img_dim,
+                    cfg.img_dim, 3, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(1))
+    x = meshlib.shard_batch(mesh, x)
+    gen = torch.Generator(device=dev)
+    warm = 2 if steps else 0
+    for i in range(warm):
+        step(x, gen.manual_seed(meshlib.dropout_seed(mesh, i)))
+    _sync(dev)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    metrics = [step(x, gen.manual_seed(meshlib.dropout_seed(mesh, warm + i)))
+               for i in range(max(steps, 1))]
+    _sync(dev)
+    dt = time.perf_counter() - t0
+    out = {"losses": [float(m["loss"]) for m in metrics],
+           "metrics": {k: float(v) for k, v in metrics[0].items()},
+           "launches": dict(_build.LAUNCHES), "digest": param_digest(model),
+           "clips_per_s": max(steps, 1) * batch / dt}
+    if save and mesh.rank == 0:
+        torch.save({k: v.float().cpu() for k, v in model.state_dict().items()},
+                   save)
+    return out
+
+
+# the flagship's config, and the small f32 one of the {d,m} ≡ {d} check
+RANK_FULL = dict(compute_dtype="bfloat16", gru_impl="pallas")
+RANK_SMALL = dict(img_dim=64, num_seq=4, seq_len=5, pred_step=2,
+                  gru_impl="pallas", gru_dropout=0.0)
+
+
+def _ranks_body(rank: int, tmp: str, device: str, full: dict,
+                batch: int) -> dict:
+    """Both ranks of phase 8 on the one card (gloo on CUDA tensors): the
+    four layouts at ``full`` width and ``batch`` clips, and the same
+    layouts in f32 at the small size."""
+    import torch
+    from dpc_tpu_torch.core.config import DPCConfig
+    from dpc_tpu_torch.parallel import mesh as meshlib
+
+    meshlib.rank_device(device, rank, same_card=True)
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for name, mp, fields in RANK_LAYOUTS:
+        mesh = meshlib.make_mesh(0, model_parallel=mp)
+        out[name] = _rank_layout(mesh, DPCConfig(**full), fields, batch,
+                                 RANK_STEPS, device)
+        out["small_" + name] = _rank_layout(
+            mesh, DPCConfig(**RANK_SMALL), fields, 8, 0, device,
+            save=os.path.join(tmp, f"{name}.pt") if mp == 2 else None)
+    return out
+
+
+def _one_rank_small(path: str, device: str) -> dict:
+    """The f32 small step on one device, global negatives (the same pool
+    as one data group of {data:1, model:2}), its parameters to ``path``."""
+    import torch
+    from dpc_tpu_torch.core.config import DPCConfig
+    from dpc_tpu_torch.parallel import mesh as meshlib
+
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        return _rank_layout(meshlib.make_mesh(), DPCConfig(**RANK_SMALL),
+                            dict(negatives="global"), 8, 0, device,
+                            save=path)
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+
+
+def _compare_small(one: dict, two: dict, p1: dict, p2: dict) -> None:
+    """{data:1, model:2} against one rank: loss and top-k within 1e-4;
+    the updated parameters as the CPU tests hold them (every one within
+    the 2·lr of a flipped Adam sign, the updates' cosine at least 0.99,
+    99.5% within 1e-4 of the largest parameter)."""
+    import torch
+    from dpc_tpu_torch.core.config import DPCConfig
+    from dpc_tpu_torch.models import dpc
+
+    for k, v in one["metrics"].items():
+        gap = abs(two["metrics"][k] - v) / max(abs(v), 1e-30)
+        expect(gap <= 1e-4, f"{{d,m}} != {{d}} on the card: {k} "
+                            f"{two['metrics'][k]} vs {v}")
+    before = {k: v.float() for k, v in dpc.build_dpc(
+        DPCConfig(**RANK_SMALL), torch.device("cpu"),
+        seed=0).state_dict().items()}
+    scale = max(float(v.abs().max()) for v in p1.values())
+    close = total = 0
+    dot = n1 = n2 = 0.0
+    for k in p1:
+        u1, u2 = (p1[k] - before[k]).double(), (p2[k] - before[k]).double()
+        diff = (u1 - u2).abs()
+        expect(float(diff.max()) <= 2.05e-3, f"{{d,m}} != {{d}}: {k}")
+        close += int((diff <= 1e-4 * scale).sum())
+        total += diff.numel()
+        dot += float((u1 * u2).sum())
+        n1 += float((u1 * u1).sum())
+        n2 += float((u2 * u2).sum())
+    cos = dot / math.sqrt(n1 * n2)
+    log(f"[ranks] {{data:1, model:2}} f32 against one rank: loss "
+        f"{two['metrics']['loss']} vs {one['metrics']['loss']}, top1 "
+        f"{two['metrics']['top1']} vs {one['metrics']['top1']}; updates' "
+        f"cosine {cos:.6f}, {100 * close / total:.3f}% of the parameters "
+        "within 1e-4 of the largest")
+    expect(cos >= 0.99 and close >= 0.995 * total,
+           f"{{d,m}} != {{d}}: cosine {cos}, {close}/{total} close")
+
+
+def _ranks_cli() -> dict:
+    """The pretrain CLI on the card with one rank and the multi-rank
+    flags, and its refusal of two ranks on one card."""
+    from dpc_tpu_torch.train import pretrain
+
+    out = _run_cli(pretrain.main,
+                   ["--dataset", "synthetic", "--nce_impl", "fused",
+                    "--batch_size", "8", "--epochs", "1",
+                    "--steps_per_epoch", "2", "--num_workers", "4",
+                    "--print_freq", "1", "--num_devices", "1",
+                    "--negatives", "global", "--cross_replica_bn"],
+                   "ranks cli", PRETRAIN_KERNELS)
+    expect("[epoch 0] 2 train steps" in out, "the 1-rank CLI did not run")
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            pretrain.main(["--dataset", "synthetic", "--num_devices", "2",
+                           "--negatives", "global"])
+    except SystemExit as e:
+        msg = str(e.code)
+    else:
+        msg = ""
+    log(f"[ranks] --num_devices 2 on one card: {msg!r}")
+    expect("needs 2 cards" in msg, "two ranks on one card were not refused")
+    return {"refusal": msg}
+
+
+def phase_ranks(device: str = "cuda", full: dict = RANK_FULL,
+                batch: int = 64, nce_shape: int = 3072) -> dict:
+    """K7 against its plain version and the two-shard combine against
+    K5/K6; then the pretrain step on two ranks sharing the one card, over
+    gloo (NCCL refuses two ranks on one device), in four full-width
+    layouts and at a small f32 size, {data:1, model:2} held against one
+    rank; then the CLI's multi-rank flags on one rank and its refusal of
+    two ranks on one card."""
+    import torch
+    from dpc_tpu_torch.parallel import mesh as meshlib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    n, half = nce_shape, nce_shape // 2
+    timed = device == "cuda"
+    try:
+        k7 = check_nce_shard(n, half, 256, timed, device)  # {data:1, model:2}
+        check_nce_shard(half, half, 256, False, device)    # {data:2, model:2}
+        check_shard_combine(n, 256, device)
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    smi = (subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+           if device == "cuda" else "the CPU")
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        t0 = time.perf_counter()
+        ranks = meshlib.run_ranks(_ranks_body, 2, (tmp, device, full, batch),
+                                  backend="gloo")
+        took = time.perf_counter() - t0
+        one = _one_rank_small(os.path.join(tmp, "one.pt"), device)
+        load = lambda n: torch.load(os.path.join(tmp, f"{n}.pt"),
+                                    weights_only=True)
+        _compare_small(one, ranks[0]["small_data1_model2"], load("one"),
+                       load("data1_model2"))
+    rates = {}
+    for name, mp, _ in RANK_LAYOUTS:
+        for kind in (name, "small_" + name):
+            res = [r[kind] for r in ranks]
+            expect(all(math.isfinite(v) for r in res for v in r["losses"]),
+                   f"{kind}: non-finite loss {[r['losses'] for r in res]}")
+            expect(len({r["digest"] for r in res}) == 1,
+                   f"{kind}: the ranks' parameters differ after the steps")
+        res = [r[name] for r in ranks]
+        kernels = SHARD_KERNELS if mp == 2 else PRETRAIN_KERNELS
+        for i, r in enumerate(res):
+            expect(all(r["launches"][k] == RANK_STEPS for k in kernels),
+                   f"{name} rank {i}: a kernel did not launch once a step: "
+                   f"{r['launches']}")
+        rates[name] = res[0]["clips_per_s"]
+        log(f"[ranks] {name} (R18-128 B64 bf16, {{data:{2 // mp}, model:"
+            f"{mp}}}): losses {res[0]['losses']}; {rates[name]:.2f} clips/s "
+            f"on {smi}, two ranks sharing one card over gloo (not a "
+            f"multi-GPU rate); rank launches {[r['launches'] for r in res]}")
+    log(f"[ranks] the two ranks' run took {took:.1f} s")
+    cli = _ranks_cli() if device == "cuda" else {}
+    return {"k7": k7, "rates": rates, "smi": smi, **cli,
+            "launches": ranks[0]["data1_model2"]["launches"]}
+
+
+def _nccl_body(rank: int, n_model: int) -> dict:
+    """One rank a card over NCCL: the full-width step in the layouts of
+    phase 8 with the data axis over every card."""
+    from dpc_tpu_torch.core.config import DPCConfig
+    from dpc_tpu_torch.parallel import mesh as meshlib
+
+    meshlib.rank_device("cuda", rank)
+    out = {}
+    for name, mp, fields in (("data_local", 1, dict(negatives="local")),
+                             ("data_global", 1, dict(negatives="global")),
+                             ("data_xbn", 1, dict(negatives="local",
+                                                  cross_replica_bn=True)),
+                             ("data_model2", n_model,
+                              dict(negatives="global"))):
+        mesh = meshlib.make_mesh(0, model_parallel=mp)
+        out[name] = dict(_rank_layout(mesh, DPCConfig(**RANK_FULL), fields,
+                                      64, RANK_STEPS), shape=mesh.shape)
+    return out
+
+
+def nccl_ranks(n: int) -> dict:
+    """The step and the pretrain CLI on ``n`` cards of one host over NCCL,
+    one rank a card (R18-128 B64 bf16, fused NCE): finite losses,
+    bit-identical parameters, the kernels launched on every rank, and
+    clips/s of each layout."""
+    from dpc_tpu_torch.ops import _build
+    from dpc_tpu_torch.parallel import mesh as meshlib
+
+    _build.build()
+    ranks = meshlib.run_ranks(_nccl_body, n, (2,), backend="nccl")
+    rates = {}
+    for name in ranks[0]:
+        res = [r[name] for r in ranks]
+        kernels = SHARD_KERNELS if name == "data_model2" else PRETRAIN_KERNELS
+        expect(all(math.isfinite(v) for r in res for v in r["losses"]),
+               f"{name}: non-finite loss")
+        expect(len({r["digest"] for r in res}) == 1,
+               f"{name}: the ranks' parameters differ")
+        expect(all(r["launches"][k] == RANK_STEPS for r in res
+                   for k in kernels), f"{name}: a kernel did not launch")
+        rates[name] = res[0]["clips_per_s"]
+        log(f"[nccl] {name} {res[0]['shape']}: losses {res[0]['losses']}; "
+            f"{rates[name]:.2f} clips/s")
+    # the CLI starts its ranks itself, which print to their own stdout
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        proc = subprocess.run(
+            [sys.executable, "-m", "dpc_tpu_torch.train.pretrain",
+             "--dataset", "synthetic", "--nce_impl", "fused", "--batch_size",
+             "64", "--epochs", "1", "--synthetic_videos", str(64 * n),
+             "--steps_per_epoch", "4", "--num_workers", "4", "--print_freq",
+             "1", "--num_devices", str(n), "--model_parallel", "2",
+             "--negatives", "global", "--log_dir", tmp],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+    for line in proc.stdout.splitlines():
+        log(f"[nccl cli] {line}")
+    expect(proc.returncode == 0 and "[epoch 0] 4 train steps" in proc.stdout,
+           f"the multi-card CLI did not run: {proc.stderr[-3000:]}")
+    return rates
+
+
+# ---------------------------------------------------------------------------
 
 def kernels_line(k: dict, launches: dict) -> dict:
     """The per-kernel JSON record: K3-K4 and the pool kernels at the LC
@@ -1846,8 +2282,9 @@ def kernels_line(k: dict, launches: dict) -> dict:
                 "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
                 "library_ms": t["library_ms"]}
 
-    g, n, p = k["gru_lc"], k["nce"], k["pool"]
-    lc_n, pre_n = launches["lc"], launches["pretrain"]
+    g, n, p, k7 = k["gru_lc"], k["nce"], k["pool"], k["k7"]
+    lc_n, pre_n, mp_n = (launches["lc"], launches["pretrain"],
+                         launches["model_axis"])
     gru_src, nce_src = ("dpc_tpu_torch/csrc/convgru.cu",
                         "dpc_tpu_torch/csrc/nce.cu")
     pool_src, pool_tpu = ("dpc_tpu_torch/csrc/maxpool.cu",
@@ -1867,6 +2304,10 @@ def kernels_line(k: dict, launches: dict) -> dict:
             p["bwd"]["err"], lc_n["maxpool_relu_bwd"]),
         row("maxpool_bwd_eq", pool_src, f"{pool_tpu}:303", p["eq"],
             p["eq"]["err"], lc_n["maxpool_bwd_eq"]),
+        row("nce_fwd_shard", nce_src, "dpc_tpu/ops/nce_pallas.py:351",
+            k7["fwd"], k7["fwd_err"], mp_n["nce_fwd_shard"]),
+        row("nce_bwd_shard", nce_src, "dpc_tpu/ops/nce_pallas.py:380",
+            k7["bwd"], k7["bwd_err"], mp_n["nce_bwd_shard"]),
     ]}
 
 
@@ -1948,6 +2389,10 @@ def main(argv=None) -> int:
                     help="only time the pretrain CLI on a frame tree with "
                          "RECIPE (device_augment or host) for this checkout "
                          "and the one under ROOT in turns; repeatable")
+    ap.add_argument("--nccl", metavar="N", type=int, default=0,
+                    help="only run the step and the pretrain CLI on N cards "
+                         "over NCCL, one rank a card, and print their "
+                         "clips/s (no ok line)")
     args = ap.parse_args(argv)
     if args.rates:
         sys.path.insert(0, str(Path(args.rates).resolve()))
@@ -1967,6 +2412,18 @@ def main(argv=None) -> int:
     if args.rates:
         print(json.dumps({"root": args.rates, **rates_only()}))
         return 0
+    if args.nccl:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, timeout=60).stdout.strip()
+        try:
+            rates = nccl_ranks(args.nccl)
+        except Failed as e:
+            print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+            return 1
+        print(smi)
+        print(json.dumps({"nccl_clips_per_s": rates, "cards": args.nccl}))
+        return 0
     if args.cli_rates:
         print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True,
@@ -1982,6 +2439,7 @@ def main(argv=None) -> int:
         phase_cli()
         frames = phase_frames()
         tools = phase_tools(s["ms_per_step"])
+        ranks = phase_ranks()
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1992,9 +2450,13 @@ def main(argv=None) -> int:
     log(f"[tools] on {smi.stdout.strip()}: {json.dumps(tools)}")
     log(f"[lc] dense-test windows/s on {smi.stdout.strip()}: "
         f"{lc['dense_test_windows_per_s']}")
+    log(f"[ranks] clips/s of two ranks sharing one card over gloo on "
+        f"{smi.stdout.strip()}: {json.dumps(ranks['rates'])}")
     log(f"[done] {time.perf_counter() - t0:.1f} s")
-    print(json.dumps(kernels_line(k, {"pretrain": s["launches"],
-                                      "lc": lc["launches"]})))
+    print(json.dumps(kernels_line(
+        {**k, "k7": ranks["k7"]},
+        {"pretrain": s["launches"], "lc": lc["launches"],
+         "model_axis": ranks["launches"]})))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)

@@ -13,6 +13,8 @@
     to disk, then renamed over the target.
   * Mid-epoch step files (``step{id}.pth.tar`` in their own directory) add
     ``batch_idx`` and resume from the exact batch.
+  * Across ranks, rank 0 writes and every rank waits for it at a barrier
+    (``write_on_rank0``); every rank reads the files on resume.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import shutil
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 _EPOCH = re.compile(r"^epoch(\d+)\.pth\.tar$")
@@ -126,6 +129,19 @@ class CheckpointManager:
 
     def restore(self, step: int) -> dict:
         return load_file(self.path(step))
+
+
+def write_on_rank0(write: Callable[[], None], mesh=None) -> None:
+    """Run ``write`` on rank 0 alone, then hold every rank at a barrier of
+    the host group until it is done, so that no rank goes on to read a
+    checkpoint, or to end the run, while it is being written.  One rank
+    (``mesh`` None or of size 1): ``write()``."""
+    if mesh is None or mesh.size == 1:
+        write()
+        return
+    if mesh.rank == 0:
+        write()
+    dist.barrier(group=mesh.host_group)
 
 
 def restore_latest(mgr: CheckpointManager) -> tuple[Optional[int],

@@ -56,6 +56,8 @@
 //    dimension is split across blocks to fill the SMs, each split writing
 //    its own partial sum; a reduce kernel adds them in split order.  No
 //    atomics: the result does not depend on scheduling.
+#include <algorithm>
+
 #include "tf32_wgmma.cuh"
 
 namespace {
@@ -402,6 +404,30 @@ int pick_splits(int own_blocks, int n_other) {
   return best;
 }
 
+// The backward's splits: drows blocks split the column tiles, dcols blocks
+// the row tiles, and both sweeps run in one grid that ends with its
+// longest block, so the two are picked together: the fewest waves × (the
+// longest block's tiles + 1/2), ties to fewer blocks.  Picking each alone
+// left the dcols blocks of a candidate shard (R = 2C) twice as long as the
+// drows blocks.
+void pick_bwd_splits(int tiles_r, int tiles_c, int nds, int& splits_r, int& splits_c) {
+  const long long slots = 2 * sm_count();
+  long long best_cost = -1, best_blocks = 0;
+  for (int sr = 1; sr <= tiles_c && sr <= MAX_SPLITS; ++sr)
+    for (int sc = 1; sc <= tiles_r && sc <= MAX_SPLITS; ++sc) {
+      const long long blocks =
+          (static_cast<long long>(tiles_r) * sr + static_cast<long long>(tiles_c) * sc) * nds;
+      const long long waves = (blocks + slots - 1) / slots;
+      const int longest = std::max((tiles_c + sr - 1) / sr, (tiles_r + sc - 1) / sc);
+      const long long cost = waves * (2 * longest + 1);
+      if (best_cost < 0 || cost < best_cost || (cost == best_cost && blocks < best_blocks)) {
+        splits_r = sr;
+        splits_c = sc;
+        best_cost = cost;
+        best_blocks = blocks;
+      }
+    }
+}
 
 // Scratch layout, in floats from the start of the buffer.
 struct Plan {
@@ -435,9 +461,7 @@ Plan plan(int R, int C, int D, bool backward) {
     p.colsT_hi = take(static_cast<size_t>(D) * p.ldc);
     p.colsT_lo = take(static_cast<size_t>(D) * p.ldc);
     p.nds = (D + DS - 1) / DS;
-    // both sweeps share the card: each split adds the blocks of both
-    p.splits_r = pick_splits((tiles_r + tiles_c) * p.nds, C);
-    p.splits_c = pick_splits((tiles_r + tiles_c) * p.nds, R);
+    pick_bwd_splits(tiles_r, tiles_c, p.nds, p.splits_r, p.splits_c);
     p.part_r = take(p.splits_r > 1 ? static_cast<size_t>(p.splits_r) * R * D : 0);
     p.part_c = take(p.splits_c > 1 ? static_cast<size_t>(p.splits_c) * C * D : 0);
   }

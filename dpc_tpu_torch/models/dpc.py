@@ -58,19 +58,20 @@ def _predictor(model: DPC, h: torch.Tensor) -> torch.Tensor:
 
 
 def encode_blocks(model: DPC, x: torch.Tensor, cfg: DPCConfig,
-                  remat: bool = False,
-                  input_norm: Optional[tuple] = None) -> torch.Tensor:
+                  remat: bool = False, input_norm: Optional[tuple] = None,
+                  bn_group=None) -> torch.Tensor:
     """``[B, N, SL, H, W, 3]`` → PRE-ReLU ``[B, N, ls, ls, D]`` (f32).
     ``remat`` recomputes the backbone's activations in the backward
     (activation checkpointing) instead of keeping them; ``input_norm``
     folds the input's normalize into the stem conv (``x`` un-normalised,
-    ``layers.conv3d_input_norm``)."""
+    ``layers.conv3d_input_norm``); ``bn_group`` is the process group of
+    the BN statistics (``dpc_tpu``'s ``axis_name``; None: this rank's)."""
     b, n, sl, h, w, c = x.shape
     x = x.reshape(b * n, sl, h, w, c)
-    feat = (checkpoint.checkpoint(model.backbone, x, input_norm,
+    feat = (checkpoint.checkpoint(model.backbone, x, input_norm, bn_group,
                                   use_reentrant=False)
             if remat and torch.is_grad_enabled()
-            else model.backbone(x, input_norm))
+            else model.backbone(x, input_norm, bn_group))
     if feat.shape[1] != cfg.last_duration:
         raise ValueError(f"backbone time extent {feat.shape[1]} != "
                          f"{cfg.last_duration}")
@@ -81,17 +82,18 @@ def encode_blocks(model: DPC, x: torch.Tensor, cfg: DPCConfig,
 
 def predict(model: DPC, x: torch.Tensor, *, cfg: DPCConfig,
             train: bool = True, generator: Optional[torch.Generator] = None,
-            remat: bool = False, input_norm: Optional[tuple] = None
-            ) -> tuple[torch.Tensor, torch.Tensor]:
+            remat: bool = False, input_norm: Optional[tuple] = None,
+            bn_group=None) -> tuple[torch.Tensor, torch.Tensor]:
     """``(pred, gt)``, both ``[B, P, ls, ls, D]``: the embeddings the score
     is computed from.  GRU dropout is drawn from ``generator`` (none
     without one); ``remat`` checkpoints the backbone; with ``input_norm``
-    the frames are un-normalised and the stem conv normalises them."""
+    the frames are un-normalised and the stem conv normalises them;
+    ``bn_group`` shares the BN statistics over a process group."""
     if x.ndim != 6:
         raise ValueError("apply_dpc expects [B, num_seq, seq_len, H, W, 3] "
                          f"(6-D, channels-last); got shape {tuple(x.shape)}")
     feature_pre = encode_blocks(model, x, cfg, remat=remat,
-                                input_norm=input_norm)
+                                input_norm=input_norm, bn_group=bn_group)
     return predict_from_features(model, feature_pre, cfg=cfg, train=train,
                                  generator=generator)
 

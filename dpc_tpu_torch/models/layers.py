@@ -13,7 +13,9 @@ normalise, eps 1e-5.  The LC classifier keeps running statistics
 ``batchnorm(state=...)``: batch statistics in train mode with an EMA
 (momentum 0.1) of the mean and the unbiased variance, running statistics in
 eval mode.  Under bf16 autocast the native kernels accumulate the
-statistics in f32.
+statistics in f32.  ``batchnorm(bn, x, group)`` takes its batch statistics
+over a process group instead (``--cross_replica_bn``, and the model
+group of a clip-sharded step): ``dpc_tpu``'s ``batchnorm(axis_name=...)``.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from dpc_tpu_torch.ops import maxpool_cuda
+from dpc_tpu_torch.parallel import collectives
 
 
 def conv3d(in_ch: int, out_ch: int, kernel, stride=1, padding=0) -> nn.Conv3d:
@@ -103,6 +106,39 @@ def batchnorm3d(ch: int, track_running_stats: bool = False
     statistics (momentum 0.1, eps 1e-5)."""
     return nn.BatchNorm3d(ch, eps=1e-5, momentum=0.1,
                           track_running_stats=track_running_stats)
+
+
+def batchnorm(bn: nn.BatchNorm3d, x: torch.Tensor, group=None
+              ) -> torch.Tensor:
+    """``bn(x)``, or with its batch statistics over the ranks of ``group``
+    (None: this rank's batch, the module itself).  Over a group it is
+    ``dpc_tpu/models/layers.py:181-203``: the mean is ``pmean``'d, the
+    variance is the two-pass variance about that group mean, ``pmean``'d
+    (every rank holds as many elements), normalised in f32 and cast back
+    to ``x``'s dtype; with running statistics in train mode, their update
+    takes the unbiased variance over the global count.  Eval mode with
+    running statistics is ``bn(x)``: there are no batch statistics to
+    share."""
+    if group is None or (bn.track_running_stats and not bn.training):
+        return bn(x)
+    xf = x.float()
+    dims = [0, 2, 3, 4]
+    mean = collectives.pmean(xf.mean(dim=dims), group)
+    centred = xf - mean.view(1, -1, 1, 1, 1)
+    var = collectives.pmean(centred.square().mean(dim=dims), group)
+    if bn.track_running_stats:
+        count = x.numel() // x.shape[1] * collectives.size(group)
+        with torch.no_grad():
+            m = bn.momentum
+            bn.running_mean.mul_(1 - m).add_(m * mean)
+            bn.running_var.mul_(1 - m).add_(
+                m * var * (count / max(count - 1, 1)))
+    inv = torch.rsqrt(var + bn.eps) * bn.weight
+    y = centred * inv.view(1, -1, 1, 1, 1) + bn.bias.view(1, -1, 1, 1, 1)
+    return y.to(x.dtype).contiguous(memory_format=(
+        torch.channels_last_3d
+        if x.is_contiguous(memory_format=torch.channels_last_3d)
+        and not x.is_contiguous() else torch.contiguous_format))
 
 
 def linear_orthogonal(in_ch: int, out_ch: int) -> nn.Linear:

@@ -11,7 +11,9 @@ The stem is the literal conv → BN → ReLU → max-pool; the pool runs
 ``layers.relu_maxpool_stem`` with ``stem_pool_impl`` ("auto": the CUDA
 kernels on the card).  ``input_norm`` folds the input's normalize into the
 stem conv (``layers.conv3d_input_norm``, the ``--fold_normalize`` of
-``--device_augment``).  ``track_running_stats=True`` builds the LC
+``--device_augment``).  ``bn_group`` takes every BN's batch statistics
+over a process group (``layers.batchnorm``; ``dpc_tpu``'s ``axis_name``),
+None this rank's batch.  ``track_running_stats=True`` builds the LC
 classifier's backbone (``eval/model_3d_lc.py:26-28``).  Module names are the
 reference's (``conv1``, ``bn1``, ``layerL.B.{conv,bn}{i}``,
 ``layerL.B.downsample.{0,1}``).
@@ -121,12 +123,16 @@ class Block(nn.Module):
                 L.conv3d(in_ch, out_ch, 1, _down_stride(kind, stride)),
                 bn(out_ch))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = self.bn2(self.conv2(out))
+    def forward(self, x: torch.Tensor, bn_group=None) -> torch.Tensor:
+        bn = lambda m, h: L.batchnorm(m, h, bn_group)
+        out = F.relu(bn(self.bn1, self.conv1(x)))
+        out = bn(self.bn2, self.conv2(out))
         if self.bottleneck:
-            out = self.bn3(self.conv3(F.relu(out)))
-        residual = x if self.downsample is None else self.downsample(x)
+            out = bn(self.bn3, self.conv3(F.relu(out)))
+        residual = x
+        if self.downsample is not None:
+            conv, norm = self.downsample
+            residual = bn(norm, conv(x))
         out = out + residual
         return F.relu(out) if self.final_relu else out
 
@@ -146,16 +152,19 @@ class ResNet2d3d(nn.Module):
             setattr(self, f"layer{si + 1}", nn.Sequential(
                 *[Block(spec, track_running_stats) for spec in stage]))
 
-    def forward(self, x: torch.Tensor,
-                input_norm: Optional[tuple] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, input_norm: Optional[tuple] = None,
+                bn_group=None) -> torch.Tensor:
         """``input_norm=(mean, std, scale)``: ``x`` is un-normalised, [0, 1]
         f32 (scale 1) or raw uint8 (scale 255), and the normalize is
-        folded into the stem conv."""
+        folded into the stem conv.  ``bn_group``: the process group of the
+        BN statistics (None: this rank's batch)."""
         # NDHWC → NCDHW is a view with channels_last_3d strides
         h = x.permute(0, 4, 1, 2, 3)
         h = (self.conv1(h) if input_norm is None
              else L.conv3d_input_norm(self.conv1, h, input_norm))
-        h = L.relu_maxpool_stem(self.bn1(h), self.stem_pool_impl)
+        h = L.relu_maxpool_stem(L.batchnorm(self.bn1, h, bn_group),
+                                self.stem_pool_impl)
         for si in range(4):
-            h = getattr(self, f"layer{si + 1}")(h)
+            for block in getattr(self, f"layer{si + 1}"):
+                h = block(h, bn_group)
         return h.permute(0, 2, 3, 4, 1)

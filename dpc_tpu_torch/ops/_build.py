@@ -9,8 +9,9 @@ edited kernel is rebuilt and a stale one is never loaded.  Libraries go to
 Nothing here runs at import time: the CPU tests import every module of the
 package on a machine with no ``nvcc`` and no card.
 
-``LAUNCHES`` counts kernel launches by kernel name; each wrapper adds one
-where it calls into the library, and nowhere else.
+``LAUNCHES`` counts kernel launches by kernel name (a wrapper may count a
+launch under a name of its own, as the candidate-sharded NCE does); each
+wrapper adds one where it calls into the library, and nowhere else.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 LAUNCHES: dict[str, int] = {"convgru_fwd": 0, "convgru_bwd": 0,
                             "nce_fwd": 0, "nce_bwd": 0,
+                            "nce_fwd_shard": 0, "nce_bwd_shard": 0,
                             "maxpool_relu_fwd": 0, "maxpool_relu_bwd": 0,
                             "maxpool_bwd_eq": 0}
 
@@ -140,17 +142,18 @@ def library(name: str) -> ctypes.CDLL:
         return lib
 
 
-def launch(lib_name: str, fn: str, *args) -> None:
+def launch(lib_name: str, fn: str, *args, count_as: str = "") -> None:
     """Call ``fn`` of library ``lib_name`` on PyTorch's current stream and
-    raise if the launch was refused.  Tensors are passed by data pointer;
-    the caller keeps them alive across the call."""
+    raise if the launch was refused; count it under ``count_as`` (default
+    ``fn``).  Tensors are passed by data pointer; the caller keeps them
+    alive across the call."""
     lib = library(lib_name)
     conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     stream = torch.cuda.current_stream().cuda_stream
     err = getattr(lib, fn)(*conv, stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {fn} failed to launch: error {err}")
-    LAUNCHES[fn] += 1
+    LAUNCHES[count_as or fn] += 1
 
 
 def scratch(lib_name: str, size_fn: str, device, *dims) -> torch.Tensor:

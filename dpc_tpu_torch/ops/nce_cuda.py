@@ -11,6 +11,12 @@ splits its operands into scratch that the wrapper allocates.
 loss_i = logsumexp_j(s_ij) − s_i,pos with s = rows·colsᵀ, and top-k from
 the rank ``#{j ≠ target_i : s_ij > pos_i}``.  The kernels never write the
 score matrix to device memory.
+
+``nce_lse_rank_shard`` (K7, ``nce_pallas.nce_lse_rank_shard``) runs the
+same two kernels over one candidate shard for the model-parallel NCE
+(``ops/sharded_nce.py``), with ``pos`` passed in and the target ``-1`` off
+the shard that owns the positive; its launches count as
+``nce_fwd_shard`` and ``nce_bwd_shard``.
 """
 
 from __future__ import annotations
@@ -39,9 +45,10 @@ def nce_backward_plain(rows, cols, lse, g):
         return p @ cols, p.t() @ rows
 
 
-def nce_forward(rows, cols, pos, targets):
+def nce_forward(rows, cols, pos, targets, count_as: str = "nce_fwd"):
     """K-NCE-F.  rows ``[R, D]``, cols ``[C, D]``, pos ``[R]`` f32,
-    targets ``[R]`` int32 → (lse, rank), both ``[R]`` f32."""
+    targets ``[R]`` int32 (``-1``: no column is excluded from the rank) →
+    (lse, rank), both ``[R]`` f32."""
     if rows.device.type == "cpu":
         return nce_forward_plain(rows, cols, pos, targets)
     _build.check_cuda_f32(rows, cols, pos)
@@ -53,11 +60,12 @@ def nce_forward(rows, cols, pos, targets):
     scratch = _build.scratch("nce", "nce_fwd_scratch_floats", rows.device,
                              r, c, d)
     _build.launch("nce", "nce_fwd", rows, cols, pos, targets.contiguous(),
-                  lse, rank, scratch, scratch.numel(), r, c, d)
+                  lse, rank, scratch, scratch.numel(), r, c, d,
+                  count_as=count_as)
     return lse, rank
 
 
-def nce_backward(rows, cols, lse, g):
+def nce_backward(rows, cols, lse, g, count_as: str = "nce_bwd"):
     """K-NCE-B: (drows, dcols) of Σ_i g_i·lse_i, both sweeps in one kernel
     launch, its partial sums reduced in a fixed order (no atomics)."""
     if rows.device.type == "cpu":
@@ -69,7 +77,7 @@ def nce_backward(rows, cols, lse, g):
     scratch = _build.scratch("nce", "nce_bwd_scratch_floats", rows.device,
                              r, c, d)
     _build.launch("nce", "nce_bwd", rows, cols, lse, g, drows, dcols,
-                  scratch, scratch.numel(), r, c, d)
+                  scratch, scratch.numel(), r, c, d, count_as=count_as)
     return drows, dcols
 
 
@@ -113,6 +121,56 @@ def nce_lse_rank(rows: torch.Tensor, cols: torch.Tensor,
     the card.  rows ``[R, D]`` f32, cols ``[C, D]`` f32, targets ``[R]``
     int32.  loss = mean(lse − pos); top-k accuracy = mean(rank < k)."""
     return _LseRank.apply(rows, cols, targets)
+
+
+class _LseRankShard(torch.autograd.Function):
+    """K7: the statistics of one candidate shard.  The backward is K6 with
+    this shard's lse and the incoming cotangent: for L = f(logsumexp_s
+    lse_s), e^{s_ij−lse_s}·∂L/∂lse_s = e^{s_ij−LSE}·∂L/∂LSE, the global
+    softmax, so the cross-shard combine composes with plain autograd."""
+
+    @staticmethod
+    def forward(ctx, rows, cols, pos, targets, plain):
+        ctx.plain = plain
+        if plain:
+            lse, rank = nce_forward_plain(rows, cols, pos, targets)
+        else:
+            lse, rank = nce_forward(rows, cols, pos, targets,
+                                    count_as="nce_fwd_shard")
+        ctx.save_for_backward(rows, cols, lse)
+        ctx.mark_non_differentiable(rank)
+        return lse, rank
+
+    @staticmethod
+    def backward(ctx, g_lse, _g_rank):
+        rows, cols, lse = ctx.saved_tensors
+        if ctx.plain:
+            drows, dcols = nce_backward_plain(rows, cols, lse, g_lse)
+        else:
+            drows, dcols = nce_backward(rows, cols, lse, g_lse,
+                                        count_as="nce_bwd_shard")
+        # pos enters only the rank count; its loss term is a gather outside
+        # the kernel, differentiated there (_shard_bwd, nce_pallas.py:380)
+        return drows, dcols, torch.zeros_like(lse), None, None
+
+
+def nce_lse_rank_shard(rows: torch.Tensor, cols: torch.Tensor,
+                       pos: torch.Tensor, targets: torch.Tensor):
+    """K7 (``nce_pallas.nce_lse_rank_shard``): ``(lse_local, rank_local)``
+    of ``rows [R, D]`` against one candidate shard ``cols [C/m, D]`` (f32),
+    ``pos [R]`` the positive logit (broadcast from its owner) and
+    ``targets [R]`` int32 the positive's local column on its owner, ``-1``
+    elsewhere.  The caller combines ``logsumexp`` of the lse and the sum
+    of the ranks over the model group.  Gradients for rows and cols; zero
+    for pos."""
+    return _LseRankShard.apply(rows, cols, pos, targets, False)
+
+
+def nce_lse_rank_shard_plain(rows, cols, pos, targets):
+    """K7's plain version (``nce_forward_plain`` and
+    ``nce_backward_plain`` under the same autograd contract), for any
+    device; the reference of the kernel on the card."""
+    return _LseRankShard.apply(rows, cols, pos, targets, True)
 
 
 def fused_nce_loss(pred: torch.Tensor, gt: torch.Tensor,

@@ -21,7 +21,7 @@ finetune and val recipes run in the steps and the test recipe in the test
 forward, whose normalize ``--fold_normalize`` auto folds into the stem
 conv.  The finetune writes tensorboard scalars and the input grid under
 the run directory where ``tensorboardX`` imports.  Several devices raise
-(ROADMAP queue 1 item 13).
+(ROADMAP queue 1 item 13b).
 
 Usage:
   python -m dpc_tpu_torch.train.evaluate --dataset synthetic --epochs 1 \
@@ -153,10 +153,11 @@ def build_parser() -> argparse.ArgumentParser:
 def _reject_unsupported(args) -> None:
     later = {
         "--num_devices": (args.num_devices > 1,
-                          "queue 1 item 13 (multi-GPU)"),
+                          "queue 1 item 13b (multi-GPU finetune)"),
         "--model_parallel": (args.model_parallel > 1,
-                             "queue 1 item 13 (multi-GPU)"),
-        "--multihost": (args.multihost, "queue 1 item 13 (multi-GPU)"),
+                             "queue 1 item 13b (multi-GPU finetune)"),
+        "--multihost": (args.multihost,
+                        "queue 1 item 13b (multi-GPU finetune)"),
     }
     for flag, (bad, item) in later.items():
         if bad:

@@ -20,6 +20,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dpc_tpu_torch.data.video_dataset import count_fallbacks
 from dpc_tpu_torch.train.metrics import denormalize
@@ -27,10 +28,15 @@ from dpc_tpu_torch.train.metrics import denormalize
 
 class PreemptionGuard:
     """SIGTERM/SIGINT → finish the current step, checkpoint, exit cleanly.
-    Installed by the drivers when mid-epoch checkpoints are on."""
+    Installed by the drivers when mid-epoch checkpoints are on.  With a
+    host ``group`` of several ranks, ``agreed()`` is the flag's max over
+    the ranks, so a signal to one rank stops every rank at the same step
+    (a rank that stopped alone would leave the others waiting in a
+    collective)."""
 
-    def __init__(self):
+    def __init__(self, group=None):
         self.requested = False
+        self.group = group
         self._prev = {}
 
     def install(self) -> "PreemptionGuard":
@@ -47,6 +53,19 @@ class PreemptionGuard:
         for sig, prev in self._prev.items():
             signal.signal(sig, prev)
         self._prev = {}
+
+    def agreed(self) -> bool:
+        """Whether a stop was requested on any rank; every rank calls this
+        at the same points of the loop.  One rank: its own flag, no
+        collective."""
+        if self.group is None:
+            return self.requested
+        flag = torch.tensor([int(self.requested)])
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self.group)
+        # a signal that lands during the all-reduce counts at the next call
+        agreed = bool(flag.item())
+        self.requested = self.requested or agreed
+        return agreed
 
 
 def is_oom(exc: BaseException) -> bool:
@@ -66,12 +85,15 @@ class RematRetry:
     step as it is."""
 
     def __init__(self, make_step, model: torch.nn.Module,
-                 optimizer: torch.optim.Optimizer, remat: bool):
+                 optimizer: torch.optim.Optimizer, remat: bool,
+                 retry: bool = True):
         self.make_step = make_step
         self.model = model
         self.optimizer = optimizer
         self.step = make_step(remat)
-        self.checked = remat
+        # no retry on several ranks: the others would wait in a collective
+        # of the failed step, so a rank out of memory fails the run
+        self.checked = remat or not retry
 
     def __call__(self, reseed, *args):
         if self.checked:
@@ -232,8 +254,9 @@ def run_epoch(dispatch, loader, meters, *, mode: str = "train",
     step ``idx``.  A non-finite train loss raises; a non-finite val
     loss warns, so that a finished train epoch still reaches its
     checkpoint.  ``step_save_fn(epoch, idx)`` persists the state after step
-    ``idx``: every ``save_every_steps`` train steps, and on preemption,
-    after which the loop exits with ``SystemExit``.  ``print_fn(idx,
+    ``idx``: every ``save_every_steps`` train steps, and on preemption
+    (``guard.agreed()``, read once a step and at the epoch's end), after
+    which the loop exits with ``SystemExit``.  ``print_fn(idx,
     metrics)`` is called with every printed step, ``first_batch_fn(batch)``
     with the epoch's first host batch before it is dispatched.  Returns the
     number of steps run.
@@ -278,7 +301,7 @@ def run_epoch(dispatch, loader, meters, *, mode: str = "train",
         if pending is not None:
             drain(pending)
         pending = (idx, fetch, _rows_of(batch))
-        preempted = guard is not None and guard.requested
+        preempted = guard is not None and guard.agreed()
         # val epochs save only on preemption (the caller's step_save_fn
         # decides what that persists); periodic saves are train-only
         if (step_save_fn is not None
@@ -297,7 +320,7 @@ def run_epoch(dispatch, loader, meters, *, mode: str = "train",
         drain(pending)
     # a signal that lands during the last step's drain exits here, at the
     # epoch boundary, with the position of the steps completed
-    if guard is not None and guard.requested and steps > 0:
+    if guard is not None and guard.agreed() and steps > 0:
         if step_save_fn is not None:
             step_save_fn(epoch, last_idx)
         raise SystemExit("[preemption] checkpointed and exiting")

@@ -18,13 +18,28 @@ go under the run directory where ``tensorboardX`` imports;
 in every step; ``--profile`` profiles the second train epoch.  The dropout
 and augmentation draws and the loader's order are derived from (seed,
 epoch, batch), so a resumed run computes what the uninterrupted run did.
-Several devices raise (ROADMAP queue 1 item 13).
+Several devices run one rank each (``parallel/mesh.py``): ``--num_devices
+N`` starts N ranks from this process (0: every visible card, one rank on
+the CPU), NCCL on the cards and gloo with ``--device cpu``; under torchrun
+(or with ``--multihost``, which reads torchrun's environment) each
+process is one rank.  Each rank loads its own ``batch_size // ranks``
+clips from its shard of the dataset, as ``dpc_tpu``'s ``--multihost``
+processes do, and the steps average the gradients and metrics over the
+ranks (``--negatives``, ``--model_parallel`` and ``--cross_replica_bn``
+as in ``dpc_tpu``).  Rank 0 prints the lines and writes the checkpoints;
+every rank reads them on resume; a signal to one rank stops every rank at
+the same step; a rank that fails fails the run.  More ranks than cards is
+refused.
 
 Usage:
   python -m dpc_tpu_torch.train.pretrain --dataset synthetic --epochs 1 \
       --steps_per_epoch 2 --batch_size 8 --nce_impl fused
   python -m dpc_tpu_torch.train.pretrain --dataset ucf101 --data_root DIR \
       --batch_size 64 --epochs 300 --save_every_steps 500 --device_augment
+  python -m dpc_tpu_torch.train.pretrain --num_devices 4 --model_parallel 2 \
+      --negatives global --batch_size 64 ...
+  torchrun --nproc_per_node 8 -m dpc_tpu_torch.train.pretrain --multihost \
+      --negatives global --batch_size 256 ...
 """
 
 from __future__ import annotations
@@ -33,9 +48,11 @@ import argparse
 import dataclasses
 import json
 import os
+import sys
 import time
 
 import torch
+import torch.distributed as dist
 
 from dpc_tpu_torch.core import checkpoint as ckpt
 from dpc_tpu_torch.core.config import (DataConfig, DPCConfig,
@@ -47,6 +64,8 @@ from dpc_tpu_torch.data.loader import ClipLoader
 from dpc_tpu_torch.data.synthetic import SyntheticVideoDataset
 from dpc_tpu_torch.data.video_dataset import make_dataset
 from dpc_tpu_torch.models import dpc as dpc_model
+from dpc_tpu_torch.parallel import collectives
+from dpc_tpu_torch.parallel import mesh as meshlib
 from dpc_tpu_torch.train import loop, optim, pretrain_step
 from dpc_tpu_torch.train.metrics import MetricBundle
 from dpc_tpu_torch.utils import profiling
@@ -90,6 +109,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num_devices", default=0, type=int)
     p.add_argument("--model_parallel", default=1, type=int)
     p.add_argument("--cross_replica_bn", action="store_true")
+    p.add_argument("--multihost", action="store_true",
+                   help="one rank of a torchrun job: join its process group "
+                        "(RANK, WORLD_SIZE, MASTER_ADDR...) and read this "
+                        "rank's shard of the data")
     p.add_argument("--device_augment", action="store_true",
                    help="host workers decode uint8 windows only; the crop, "
                         "flip, gray, jitter and normalize run on the device")
@@ -124,23 +147,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; cuda without a card fails")
     return p
-
-
-def _reject_unsupported(args) -> None:
-    later = {
-        "--num_devices": (args.num_devices > 1,
-                          "queue 1 item 13 (multi-GPU)"),
-        "--model_parallel": (args.model_parallel > 1,
-                             "queue 1 item 13 (multi-GPU)"),
-        "--negatives": (args.negatives != "local",
-                        "queue 1 item 13 (multi-GPU)"),
-        "--cross_replica_bn": (args.cross_replica_bn,
-                               "queue 1 item 13 (multi-GPU)"),
-    }
-    for flag, (bad, item) in later.items():
-        if bad:
-            raise SystemExit(f"{flag} is not ported to dpc_tpu_torch yet "
-                             f"(ROADMAP.md {item})")
 
 
 def config_from_args(args) -> ExperimentConfig:
@@ -235,32 +241,119 @@ def write_profile(path: str, prof, steps: int, batch_size: int,
     print(f"[profile] {summary}; table in {path}", flush=True)
 
 
+def _spawned_rank(rank: int, argv: list) -> str:
+    """A rank that ``--num_devices`` started: the run, in a process group
+    that ``mesh.run_ranks`` joined.  Returns the preemption exit's message,
+    or "" when the run ended."""
+    try:
+        main(argv)
+    except SystemExit as e:
+        if e.code in (None, 0):
+            return ""
+        if isinstance(e.code, str) and e.code.startswith("[preemption]"):
+            return e.code
+        raise
+    return ""
+
+
+def _ranks(args, device: torch.device) -> int:
+    """How many ranks this run has: the process group's when there is one
+    (spawned by ``--num_devices``, or torchrun's, joined here), else
+    ``--num_devices`` (0: every visible card; one on the CPU), which this
+    process then starts.  More ranks than cards is refused."""
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    if args.multihost or meshlib.under_torchrun():
+        meshlib.init_multihost(backend)
+    if dist.is_initialized():
+        world = dist.get_world_size()
+        if args.num_devices and args.num_devices != world:
+            raise SystemExit(f"--num_devices {args.num_devices} but the "
+                             f"process group has {world} ranks")
+        return world
+    cards = torch.cuda.device_count() if device.type == "cuda" else 0
+    world = args.num_devices or max(cards, 1)
+    if device.type == "cuda" and world > cards:
+        raise SystemExit(f"--num_devices {world} needs {world} cards, one "
+                         f"rank a card; {cards} visible (ranks do not "
+                         "share a card)")
+    return world
+
+
+def _check_layout(t: TrainConfig, world: int) -> None:
+    """The divisibility and negatives rules of the steps, before any rank
+    starts: a bad layout exits with its reason."""
+    if t.batch_size % world:
+        raise SystemExit(f"--batch_size {t.batch_size} must be divisible by "
+                         f"{world} devices")
+    if world % t.model_parallel:
+        raise SystemExit(f"{world} devices not divisible by "
+                         f"--model_parallel {t.model_parallel}")
+    try:
+        pretrain_step.check_layout(t, world // t.model_parallel,
+                                   t.model_parallel)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+
+
 def main(argv=None) -> None:
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
-    _reject_unsupported(args)
+    device = resolve_device(args.device)
+    joined_here = not dist.is_initialized()
+    world = _ranks(args, device)
+    _check_layout(config_from_args(args).train, world)
+    if world > 1 and not dist.is_initialized():
+        backend = "nccl" if device.type == "cuda" else "gloo"
+        exits = [e for e in meshlib.run_ranks(_spawned_rank, world, (argv,),
+                                              backend=backend) if e]
+        if exits:
+            raise SystemExit(exits[0])
+        return
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    stdout = sys.stdout
+    if rank:  # rank 0 prints the run's lines
+        sys.stdout = open(os.devnull, "w")
+    try:
+        _run(args, device, world)
+    finally:
+        if rank:
+            sys.stdout.close()
+            sys.stdout = stdout
+        if joined_here and dist.is_initialized():  # torchrun's group
+            dist.destroy_process_group()
+
+
+def _run(args, device: torch.device, world: int) -> None:
     cfg = config_from_args(args)
     m, t = cfg.model, cfg.train
-    device = resolve_device(args.device)
+    mesh = meshlib.make_mesh(world if world > 1 else 0, t.model_parallel)
+    if world > 1:
+        local = int(os.environ.get("LOCAL_RANK", mesh.rank))
+        device = meshlib.rank_device(device.type, local)
     # gru_impl has no flag: the CLI runs the recurrence kernel, as the
     # library path does when its config asks for it
     m = dataclasses.replace(m, gru_impl="pallas")
     cfg = dataclasses.replace(cfg, model=m)
-    print(f"device: {device}"
+    print(f"devices: {mesh.shape} × {device.type}"
           + (f" ({torch.cuda.get_device_name(device)})"
              if device.type == "cuda" else "")
           + f"; negatives={t.negatives}; dtype={m.compute_dtype}")
+    if mesh.size == 1:
+        mesh = None
+    rank0 = mesh is None or mesh.rank == 0
 
     exp_dir = (args.resume if args.resume
                else os.path.join(args.log_dir,
                                  f"{args.prefix}_{experiment_name(cfg)}"))
-    os.makedirs(exp_dir, exist_ok=True)
-    with open(os.path.join(exp_dir, "config.json"), "w") as f:
-        f.write(cfg.to_json())
+    if rank0:
+        os.makedirs(exp_dir, exist_ok=True)
+        with open(os.path.join(exp_dir, "config.json"), "w") as f:
+            f.write(cfg.to_json())
 
     model = dpc_model.build_dpc(m, device, seed=t.seed)
     opt = optim.pretrain_optimizer(model, t.lr, t.wd, t.train_what)
     if t.pretrain:
-        ckpt.load_pretrained(t.pretrain, model)
+        ckpt.load_pretrained(t.pretrain, model, verbose=rank0)
 
     def restore(payload: dict) -> None:
         """Parameters, and the optimizer unless --reset_lr asks for a
@@ -299,39 +392,48 @@ def main(argv=None) -> None:
             print(f"resumed mid-epoch: epoch {start_epoch} "
                   f"batch {start_batch}")
 
+    # every rank starts from rank 0's parameters
+    collectives.broadcast_(list(model.parameters()) + list(model.buffers()),
+                           mesh and mesh.world_group)
     step = loop.RematRetry(
         lambda remat: pretrain_step.make_pretrain_step(
-            m, dataclasses.replace(t, remat=remat), model, opt),
-        model, opt, t.remat)
-    eval_step = pretrain_step.make_eval_step(m, t, model)
+            m, dataclasses.replace(t, remat=remat), model, opt, mesh),
+        model, opt, t.remat, retry=mesh is None)
+    eval_step = pretrain_step.make_eval_step(m, t, model, mesh)
     gen = torch.Generator(device=device)
     aug_gen = torch.Generator()  # the device recipe's draws, made on the host
     augmenting = t.device_augment
     to_device = loop.DeviceFeed(device)
 
     def loader(mode: str, seed: int) -> ClipLoader:
+        # each rank reads its shard, batch_size // ranks clips a batch
         return ClipLoader(get_dataset(cfg, mode, args.unit_test),
-                          t.batch_size, num_workers=cfg.data.num_workers,
+                          t.batch_size // world,
+                          num_workers=cfg.data.num_workers,
                           worker_mode=cfg.data.worker_mode,
                           prefetch_batches=cfg.data.prefetch, seed=seed,
-                          pin_memory=device.type == "cuda")
+                          pin_memory=device.type == "cuda",
+                          shard_id=mesh.rank if mesh else 0,
+                          num_shards=world)
 
     train_loader, val_loader = loader("train", t.seed), loader("val",
                                                                t.seed + 1)
     print(f"train videos: {len(train_loader.dataset)}; "
           f"val videos: {len(val_loader.dataset)}")
-    writer_train, writer_val = loop.open_tensorboard(exp_dir)
+    writer_train, writer_val = (loop.open_tensorboard(exp_dir) if rank0
+                                else (None, None))
 
     def save_mid_epoch(ep: int, batch_idx: int) -> None:
-        ckpt.save_step_unless_duplicate(
-            step_mgr,
-            ckpt.mid_epoch_step_id(ep, batch_idx, offset=iteration),
+        sid = ckpt.mid_epoch_step_id(ep, batch_idx, offset=iteration)
+        ckpt.write_on_rank0(lambda: ckpt.save_step_unless_duplicate(
+            step_mgr, sid,
             lambda: {"epoch": ep, "batch_idx": batch_idx, "net": m.network,
                      "state_dict": model.state_dict(),
                      "optimizer": opt.state_dict(), "best_acc": best_acc,
-                     "iteration": iteration})
+                     "iteration": iteration}), mesh)
 
-    guard = loop.PreemptionGuard().install() if step_mgr else None
+    guard = (loop.PreemptionGuard(mesh and mesh.host_group).install()
+             if step_mgr else None)
     if args.debug_nans:
         profiling.enable_debug(nan_checks=True)
     try:
@@ -341,18 +443,23 @@ def main(argv=None) -> None:
 
             def train_dispatch(idx, batch, epoch=epoch):
                 def reseed():
-                    gen.manual_seed(loop.step_seed(t.seed, epoch, idx))
+                    # per rank: data shards draw distinct streams, model
+                    # peers one augmentation stream and their own dropout
+                    gen.manual_seed(meshlib.dropout_seed(
+                        mesh, loop.step_seed(t.seed, epoch, idx)))
                     if augmenting:
-                        aug_gen.manual_seed(loop.step_seed(
-                            t.seed, epoch, idx, loop.TRAIN_AUGMENT))
+                        aug_gen.manual_seed(meshlib.data_seed(
+                            mesh, loop.step_seed(t.seed, epoch, idx,
+                                                 loop.TRAIN_AUGMENT)))
 
                 reseed()
                 return step(reseed, to_device(batch), gen, aug_gen)
 
             def val_dispatch(idx, batch, epoch=epoch):
                 if augmenting:
-                    aug_gen.manual_seed(loop.step_seed(t.seed, epoch, idx,
-                                                       loop.VAL_AUGMENT))
+                    aug_gen.manual_seed(meshlib.data_seed(
+                        mesh, loop.step_seed(t.seed, epoch, idx,
+                                             loop.VAL_AUGMENT)))
                 return eval_step(to_device(batch), aug_gen)
 
             def count_iteration(idx, metrics):
@@ -381,7 +488,8 @@ def main(argv=None) -> None:
                 save_mid_epoch(ep, train_done - 1)
 
             # the run's second train epoch: every step after its first
-            profiled = bool(args.profile) and epoch == start_epoch + 1
+            profiled = (bool(args.profile) and rank0
+                        and epoch == start_epoch + 1)
             meters, vmeters = MetricBundle(), MetricBundle()
             with profiling.trace(os.path.dirname(os.path.abspath(
                     args.profile)) if profiled else None) as prof:
@@ -422,12 +530,13 @@ def main(argv=None) -> None:
                     writer_val.add_scalar(f"global/{k}", v, epoch)
             val_acc = va.get("top1", 0.0)
             best_acc = max(best_acc, val_acc)
-            mgr.save(epoch + 1,
-                     {"epoch": epoch + 1, "net": m.network,
-                      "state_dict": model.state_dict(),
-                      "optimizer": opt.state_dict(), "best_acc": best_acc,
-                      "iteration": iteration},
-                     val_acc=val_acc)
+            ckpt.write_on_rank0(lambda: mgr.save(
+                epoch + 1,
+                {"epoch": epoch + 1, "net": m.network,
+                 "state_dict": model.state_dict(),
+                 "optimizer": opt.state_dict(), "best_acc": best_acc,
+                 "iteration": iteration},
+                val_acc=val_acc), mesh)
     finally:
         train_loader.close()
         val_loader.close()

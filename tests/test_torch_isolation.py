@@ -33,7 +33,8 @@ for name in ("models.lc", "ops.maxpool_cuda", "train.finetune_step",
              "data.video_dataset", "data.frame_tree", "data.device_augment",
              "core.checkpoint", "train.loop", "bench", "train.bench_loop",
              "train.bench_breakdown", "train.bench_input", "utils.profiling",
-             "models.registry"):
+             "models.registry", "parallel.mesh", "parallel.collectives",
+             "parallel.dryrun", "ops.sharded_nce", "ops.nce_cuda"):
     assert "dpc_tpu_torch." + name in names, name
 print(len(names))
 """
@@ -45,6 +46,31 @@ def test_port_imports_neither_jax_nor_dpc_tpu():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 40   # every module was imported
+
+
+def test_multi_rank_modules_import_no_jax():
+    """The multi-rank modules, each imported alone with JAX and dpc_tpu
+    blocked, pull in neither; nor does their source name them."""
+    mods = ("parallel.mesh", "parallel.collectives", "parallel.dryrun",
+            "ops.sharded_nce", "ops.nce_cuda")
+    probe = ("import importlib, sys\n"
+             "for b in ('jax', 'jaxlib', 'dpc_tpu'):\n"
+             "    sys.modules[b] = None\n"
+             + "".join(f"importlib.import_module('dpc_tpu_torch.{m}')\n"
+                       for m in mods)
+             + "assert not [k for k, v in sys.modules.items() if v is not None"
+               " and (k.startswith('jax') or k == 'dpc_tpu'"
+               " or k.startswith('dpc_tpu.'))]\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    for m in mods:
+        src = (ROOT / "dpc_tpu_torch" / (m.replace(".", "/") + ".py")
+               ).read_text()
+        for bad in ("import jax", "from jax", "import dpc_tpu\n",
+                    "from dpc_tpu.", "from dpc_tpu import"):
+            assert bad not in src, (m, bad)
 
 
 def test_chip_smoke_source_imports_no_jax():

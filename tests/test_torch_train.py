@@ -82,11 +82,14 @@ def test_one_train_step_matches_jax():
 
 
 def test_unported_options_raise():
+    """The multi-rank options are ported (tests/test_torch_parallel.py);
+    on one device a model axis has no mesh to shard over and raises, and
+    an unknown negatives mode raises."""
     model = dpc.DPC(DPCConfig(**SHAPE))
     opt = optim.pretrain_optimizer(model, LR, WD)
-    for bad in (dict(negatives="global"), dict(model_parallel=2),
-                dict(cross_replica_bn=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for bad, match in ((dict(model_parallel=2), "needs a mesh"),
+                       (dict(negatives="cross"), "negatives")):
+        with pytest.raises(ValueError, match=match):
             pretrain_step.make_pretrain_step(
                 DPCConfig(**SHAPE), TrainConfig(batch_size=B, **bad),
                 model, opt)
@@ -106,9 +109,9 @@ def test_cli_runs_two_steps_on_cpu(tmp_path, capsys):
     loss = float(line[0].split("loss")[1].split()[0])
     assert math.isfinite(loss) and "[epoch 0] 2 train steps in" in out
     assert list(tmp_path.glob("*/config.json"))
-    with pytest.raises(SystemExit, match="ROADMAP"):
+    with pytest.raises(SystemExit, match="negatives global"):
         pretrain.main(["--device", "cpu", "--dataset", "synthetic",
-                       "--negatives", "global"])
+                       "--num_devices", "2", "--model_parallel", "2"])
 
 
 def test_pretrain_loss_envelope_over_three_steps():
