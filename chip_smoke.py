@@ -82,9 +82,21 @@ Phases, each printing its facts before the next starts:
               bit-identical parameters across the ranks, and clips/s (two
               ranks sharing one card, not a multi-GPU rate); the same
               layouts in f32 at a small size, {data:1, model:2} held
-              against one rank; the pretrain CLI with --num_devices 1
-              --negatives global --cross_replica_bn, and its refusal of
-              --num_devices 2 on one card
+              against one rank; the LC finetune step at the LC flagship
+              (R18-128 8x5, B32 global, 16 clips a rank, bf16, dropout 0.5
+              and 0.1, 101 classes) in {data:2} and {data:1, model:2}, 2
+              warm-up and 5 timed steps each (K1-K4 once a step on every
+              rank), bit-identical parameters and running statistics, and
+              clips/s; the same in f32 at a small size, dropout off,
+              {data:1, model:2} held against one rank (loss within 1e-5,
+              the Adam updates' cosine at least 0.999); the dense test
+              (evaluate.run_test, the LC flagship in f32, 4 synthetic
+              videos) on both ranks against rank 0 alone (loss within
+              1e-4, top-1 and top-5 equal); the pretrain CLI with
+              --num_devices 1 --negatives global --cross_replica_bn, both
+              CLIs' refusal of --num_devices 2 on one card, and the
+              finetune CLI with --num_devices 2 --device cpu (one epoch
+              of 2 steps and val)
 Then one JSON line of per-kernel results, the card's name and power limit,
 and a last line {"ok": true, "device": {...}}.  Any failure exits non-zero
 before the last line.  Without a CUDA device it exits 2 and prints no result.
@@ -94,8 +106,12 @@ flagship steps, and the device time of each kernel inside K-GRU-F/B at the
 pretrain and LC shapes, to PATH.  --rates ROOT only times the two flagship steps of
 the dpc_tpu_torch under ROOT and prints one JSON line of clips/s: run it
 for two checkouts in turns (a, b, b, a) in one call to compare commits.
---nccl N only runs the pretrain step of phase 8 and the pretrain CLI on N
-cards of one host over NCCL, one rank a card, and prints their clips/s.
+--nccl N only runs, on N cards of one host over NCCL, one rank a card, the
+pretrain step of phase 8 in its layouts, the LC step at global batch 32
+in {data:N} and {data:N/2, model:2}, the dense test (evaluate.run_test
+over 256 synthetic videos) on every card and on one, the pretrain CLI,
+and the finetune CLI with --model_parallel 2 (4 steps and val, then
+--test), and prints their clips/s and windows/s.
 --cli_rates RECIPE=ROOT (repeatable) only prints the pretrain CLI's clips/s
 and busy share on a frame tree with RECIPE (device_augment or host), for
 this checkout and the one under ROOT in turns (ROOT, here, here, ROOT).
@@ -1998,14 +2014,33 @@ def _sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
+def _timed_steps(mesh, dev, steps: int, batch: int, run) -> dict:
+    """``run(i)`` (step i of this rank, returning its metrics): 2 warm-up
+    steps and ``steps`` timed ones (one, untimed, for 0) with the launch
+    counts set to 0 just before them and read just after."""
+    from dpc_tpu_torch.ops import _build
+
+    warm = 2 if steps else 0
+    for i in range(warm):
+        run(i)
+    _sync(dev)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    metrics = [run(warm + i) for i in range(max(steps, 1))]
+    _sync(dev)
+    dt = time.perf_counter() - t0
+    return {"losses": [float(m["loss"]) for m in metrics],
+            "metrics": {k: float(v) for k, v in metrics[0].items()},
+            "launches": dict(_build.LAUNCHES),
+            "clips_per_s": max(steps, 1) * batch / dt}
+
+
 def _rank_layout(mesh, cfg, fields, batch, steps, device="cuda", save=None):
-    """One layout on this rank: a model from seed 0, the step, 2 warm-up
-    steps and ``steps`` timed ones with the launch counts set to 0 just
-    before them and read just after."""
+    """One pretrain layout on this rank: a model from seed 0, the step, and
+    ``_timed_steps``."""
     import torch
     from dpc_tpu_torch.core.config import TrainConfig
     from dpc_tpu_torch.models import dpc
-    from dpc_tpu_torch.ops import _build
     from dpc_tpu_torch.parallel import mesh as meshlib
     from dpc_tpu_torch.parallel.dryrun import param_digest
     from dpc_tpu_torch.train import optim, pretrain_step
@@ -2021,23 +2056,44 @@ def _rank_layout(mesh, cfg, fields, batch, steps, device="cuda", save=None):
                     generator=torch.Generator(device=dev).manual_seed(1))
     x = meshlib.shard_batch(mesh, x)
     gen = torch.Generator(device=dev)
-    warm = 2 if steps else 0
-    for i in range(warm):
-        step(x, gen.manual_seed(meshlib.dropout_seed(mesh, i)))
-    _sync(dev)
-    _build.reset_launches()
-    t0 = time.perf_counter()
-    metrics = [step(x, gen.manual_seed(meshlib.dropout_seed(mesh, warm + i)))
-               for i in range(max(steps, 1))]
-    _sync(dev)
-    dt = time.perf_counter() - t0
-    out = {"losses": [float(m["loss"]) for m in metrics],
-           "metrics": {k: float(v) for k, v in metrics[0].items()},
-           "launches": dict(_build.LAUNCHES), "digest": param_digest(model),
-           "clips_per_s": max(steps, 1) * batch / dt}
+    out = _timed_steps(mesh, dev, steps, batch, lambda i: step(
+        x, gen.manual_seed(meshlib.dropout_seed(mesh, i))))
+    out["digest"] = param_digest(model)
     if save and mesh.rank == 0:
         torch.save({k: v.float().cpu() for k, v in model.state_dict().items()},
                    save)
+    return out
+
+
+def _lc_rank_layout(mesh, cfg, ecfg, steps, device="cuda", save=None):
+    """One LC finetune layout on this rank: the LC from seed 0, the step on
+    this rank's clips of ``ecfg.batch_size``, and ``_timed_steps``; the
+    digest covers the running statistics too."""
+    import torch
+    from dpc_tpu_torch.models import lc
+    from dpc_tpu_torch.parallel import mesh as meshlib
+    from dpc_tpu_torch.parallel.dryrun import param_digest
+    from dpc_tpu_torch.train import finetune_step, optim
+
+    dev = torch.device(device)
+    model = lc.build_lc(cfg, ecfg.num_classes, dev, dropout=ecfg.dropout,
+                        seed=0)
+    opt = optim.finetune_optimizer(model, ecfg.lr, ecfg.wd, ecfg.train_what,
+                                   ecfg.backbone_lr_scale)
+    step = finetune_step.make_finetune_step(cfg, ecfg, model, opt, mesh)
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(ecfg.batch_size, cfg.num_seq, cfg.seq_len, cfg.img_dim,
+                    cfg.img_dim, 3, device=dev, generator=g)
+    y = torch.randint(0, ecfg.num_classes, (ecfg.batch_size,), device=dev,
+                      generator=g)
+    x, y = meshlib.shard_batch(mesh, x), meshlib.shard_batch(mesh, y)
+    gen = torch.Generator(device=dev)
+    out = _timed_steps(mesh, dev, steps, ecfg.batch_size, lambda i: step(
+        x, y, gen.manual_seed(meshlib.dropout_seed(mesh, i))))
+    out["digest"] = param_digest(model)
+    if save and mesh.rank == 0:
+        torch.save({k: v.float().cpu() for k, v in model.state_dict().items()
+                    if "num_batches" not in k}, save)
     return out
 
 
@@ -2045,15 +2101,34 @@ def _rank_layout(mesh, cfg, fields, batch, steps, device="cuda", save=None):
 RANK_FULL = dict(compute_dtype="bfloat16", gru_impl="pallas")
 RANK_SMALL = dict(img_dim=64, num_seq=4, seq_len=5, pred_step=2,
                   gru_impl="pallas", gru_dropout=0.0)
+# the LC flagship on two ranks (16 clips a rank), and its small f32 check
+LC_RANK_LAYOUTS = (("lc_data2", 1), ("lc_data1_model2", 2))
+LC_FULL = dict(compute_dtype="bfloat16", gru_impl="pallas", gru_dropout=0.1)
+LC_FULL_EVAL = dict(num_classes=101, dropout=0.5, train_what="ft",
+                    backbone_lr_scale=0.1, batch_size=32)
+LC_SMALL = dict(img_dim=64, num_seq=4, seq_len=5, gru_impl="pallas",
+                gru_dropout=0.0)
+LC_SMALL_EVAL = dict(num_classes=11, dropout=0.0, batch_size=8)
+# the dense test on 2 ranks and on 1 (the LC flagship in f32, 4 synthetic
+# videos of 10 windows, 16 window rows a forward on every rank)
+DENSE_ARGS = ["--dataset", "synthetic", "--synthetic_videos", "4",
+              "--num_class", "101", "--compute_dtype", "float32",
+              "--test", "random"]
+# the dense test across cards: a test split of hundreds of videos in bf16
+NCCL_DENSE_VIDEOS = 256
+NCCL_DENSE_ARGS = ["--dataset", "synthetic", "--synthetic_videos",
+                   str(NCCL_DENSE_VIDEOS), "--num_class", "101", "--test",
+                   "random"]
 
 
 def _ranks_body(rank: int, tmp: str, device: str, full: dict,
-                batch: int) -> dict:
+                batch: int, lc_full: dict, dense_args: list) -> dict:
     """Both ranks of phase 8 on the one card (gloo on CUDA tensors): the
-    four layouts at ``full`` width and ``batch`` clips, and the same
-    layouts in f32 at the small size."""
+    four pretrain layouts at ``full`` width and ``batch`` clips and the
+    two LC layouts at ``lc_full`` width, each also in f32 at the small
+    size; then the dense test on both ranks and on rank 0 alone."""
     import torch
-    from dpc_tpu_torch.core.config import DPCConfig
+    from dpc_tpu_torch.core.config import DPCConfig, EvalConfig
     from dpc_tpu_torch.parallel import mesh as meshlib
 
     meshlib.rank_device(device, rank, same_card=True)
@@ -2066,6 +2141,51 @@ def _ranks_body(rank: int, tmp: str, device: str, full: dict,
         out["small_" + name] = _rank_layout(
             mesh, DPCConfig(**RANK_SMALL), fields, 8, 0, device,
             save=os.path.join(tmp, f"{name}.pt") if mp == 2 else None)
+    for name, mp in LC_RANK_LAYOUTS:
+        mesh = meshlib.make_mesh(0, model_parallel=mp)
+        out[name] = _lc_rank_layout(mesh, DPCConfig(**lc_full),
+                                    EvalConfig(**LC_FULL_EVAL), RANK_STEPS,
+                                    device)
+        out["small_" + name] = _lc_rank_layout(
+            mesh, DPCConfig(**LC_SMALL), EvalConfig(**LC_SMALL_EVAL), 0,
+            device, save=os.path.join(tmp, f"{name}.pt") if mp == 2 else None)
+    out["dense"] = _rank_dense_test(meshlib.make_mesh(0), tmp, device,
+                                    dense_args)
+    return out
+
+
+def _rank_dense_test(mesh, tmp: str, device: str, args: list,
+                     rank_wb: int = 16) -> dict:
+    """``evaluate.run_test`` of the LC from seed 0 on the ranks of ``mesh``
+    (the videos split between them), then on rank 0 alone over the same
+    videos, ``rank_wb`` window rows a forward on a rank each time: loss,
+    top-1, top-5, the windows/s and the launches."""
+    import torch
+    from dpc_tpu_torch.models import lc
+    from dpc_tpu_torch.ops import _build
+    from dpc_tpu_torch.train import evaluate
+
+    cfg = evaluate.config_from_args(evaluate.build_parser().parse_args(args))
+    dev = torch.device(device)
+    model = lc.build_lc(cfg.model, cfg.eval.num_classes, dev, seed=0)
+    out = {}
+    for n, m in ((mesh.size, mesh), (1, None)):
+        if m is None and mesh.rank:
+            break
+        exp_dir = os.path.join(tmp, f"dense{n}")
+        _build.reset_launches()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            loss, top1 = evaluate.run_test(cfg, model, exp_dir,
+                                           window_batch=rank_wb * n, mesh=m)
+        rate = re.search(r"windows / \d+ videos in \S+ = (\S+) windows/s",
+                         buf.getvalue())
+        out[n] = {"loss": loss, "top1": top1, "launches":
+                  dict(_build.LAUNCHES),
+                  "windows_per_s": float(rate.group(1)) if rate else None}
+        if mesh.rank == 0:
+            log_md = Path(exp_dir, "test_log.md").read_text()
+            out[n]["top5"] = float(log_md.split("top5: ")[-1].split()[0])
     return out
 
 
@@ -2123,6 +2243,118 @@ def _compare_small(one: dict, two: dict, p1: dict, p2: dict) -> None:
            f"{{d,m}} != {{d}}: cosine {cos}, {close}/{total} close")
 
 
+def _one_rank_lc_small(path: str, device: str) -> dict:
+    """The f32 small LC step on one device, its state to ``path``."""
+    import torch
+    from dpc_tpu_torch.core.config import DPCConfig, EvalConfig
+    from dpc_tpu_torch.parallel import mesh as meshlib
+
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        return _lc_rank_layout(meshlib.make_mesh(), DPCConfig(**LC_SMALL),
+                               EvalConfig(**LC_SMALL_EVAL), 0, device,
+                               save=path)
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+
+
+def _compare_lc_small(one: dict, two: dict, p1: dict, p2: dict) -> None:
+    """The LC step on {data:1, model:2} against one rank, f32, dropout off:
+    loss within 1e-5 relative, top-k equal, the Adam updates' cosine at
+    least 0.999 and the running statistics within 1e-4 of each tensor's
+    largest (BN over the model group is the one rank's BN)."""
+    import torch
+    from dpc_tpu_torch.core.config import DPCConfig
+    from dpc_tpu_torch.models import lc
+
+    m1, m2 = one["metrics"], two["metrics"]
+    gap = abs(m2["loss"] - m1["loss"]) / abs(m1["loss"])
+    before = lc.build_lc(DPCConfig(**LC_SMALL), LC_SMALL_EVAL["num_classes"],
+                         torch.device("cpu"), seed=0).state_dict()
+    dot = n1 = n2 = 0.0
+    stats = 0.0
+    for k, v in p1.items():
+        if "running" in k:
+            stats = max(stats, rel_err(p2[k], v))
+            continue
+        u1, u2 = (v - before[k]).double(), (p2[k] - before[k]).double()
+        dot += float((u1 * u2).sum())
+        n1 += float((u1 * u1).sum())
+        n2 += float((u2 * u2).sum())
+    cos = dot / math.sqrt(n1 * n2)
+    log(f"[ranks] LC {{data:1, model:2}} f32 against one rank: loss "
+        f"{m2['loss']} vs {m1['loss']} (rel {gap:.2e}), top1 {m2['top1']} "
+        f"vs {m1['top1']}; updates' cosine {cos:.6f}; running stats rel "
+        f"err {stats:.2e}")
+    expect(gap <= 1e-5, f"LC {{d,m}} != {{d}}: loss gap {gap}")
+    expect(m1["top1"] == m2["top1"] and m1["top5"] == m2["top5"],
+           f"LC {{d,m}} != {{d}}: top-k {m2} vs {m1}")
+    expect(cos >= 0.999, f"LC {{d,m}} != {{d}}: updates' cosine {cos}")
+    expect(stats <= 1e-4, f"LC {{d,m}} != {{d}}: running stats {stats}")
+
+
+def _check_dense_ranks(res: list, n: int, tol: float, what: str,
+                       on_card: bool) -> tuple:
+    """The dense test on ``n`` ranks against 1 rank on the same videos:
+    loss within ``tol`` relative, top-1 and top-5 equal, every rank
+    returning the same sums; K1 and K3 launched on every rank.  Returns
+    the windows/s on ``n`` ranks and on one."""
+    many, one = res[0][n], res[0][1]
+    expect(all(r[n]["loss"] == many["loss"] and r[n]["top1"] == many["top1"]
+               for r in res), "the ranks' dense-test results differ")
+    gap = abs(many["loss"] - one["loss"]) / abs(one["loss"])
+    log(f"{what} on {n} ranks / 1 rank: loss {many['loss']} / "
+        f"{one['loss']} (rel {gap:.2e}), top1 {many['top1']} / "
+        f"{one['top1']}, top5 {many['top5']} / {one['top5']}; "
+        f"{many['windows_per_s']} / {one['windows_per_s']} windows/s; "
+        f"launches {[r[n]['launches'] for r in res]}")
+    expect(gap <= tol and many["top1"] == one["top1"]
+           and many["top5"] == one["top5"],
+           f"the {n}-rank dense test differs from 1 rank: {many} vs {one}")
+    expect(not on_card or all(r[n]["launches"][k] > 0 for r in res
+                              for k in ("convgru_fwd", "maxpool_relu_fwd")),
+           "K1 or K3 did not launch in a rank's dense test")
+    return many["windows_per_s"], one["windows_per_s"]
+
+
+def _ranks_finetune_cli() -> dict:
+    """The finetune CLI's refusal of two ranks on one card, and the CLI
+    with ``--num_devices 2 --device cpu`` (two gloo ranks on the host):
+    one epoch of 2 steps with val and a checkpoint (the dense test across
+    ranks runs in ``_rank_dense_test``)."""
+    from dpc_tpu_torch.train import evaluate
+
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            evaluate.main(["--dataset", "synthetic", "--num_devices", "2"])
+    except SystemExit as e:
+        msg = str(e.code)
+    else:
+        msg = ""
+    log(f"[ranks] finetune --num_devices 2 on one card: {msg!r}")
+    expect("needs 2 cards" in msg, "the finetune CLI put two ranks on one "
+                                   "card")
+    small = ["--device", "cpu", "--num_devices", "2", "--dataset",
+             "synthetic", "--img_dim", "32", "--num_seq", "3", "--seq_len",
+             "4", "--compute_dtype", "float32", "--batch_size", "4",
+             "--synthetic_videos", "8", "--num_workers", "2",
+             "--print_freq", "1", "--epochs", "1", "--steps_per_epoch", "2"]
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        proc = subprocess.run(
+            [sys.executable, "-m", "dpc_tpu_torch.train.evaluate", *small,
+             "--log_dir", tmp], cwd=ROOT, capture_output=True, text=True,
+            timeout=300)
+    for line in proc.stdout.splitlines():
+        log(f"[ranks finetune cli] {line}")
+    expect(proc.returncode == 0, f"the 2-rank CPU finetune CLI failed: "
+                                 f"{proc.stderr[-3000:]}")
+    expect("[epoch 0] 2 train steps" in proc.stdout
+           and "val loss" in proc.stdout
+           and "devices: {'data': 2, 'model': 1}" in proc.stdout,
+           "the 2-rank CPU finetune CLI did not train and validate")
+    return {"finetune_refusal": msg}
+
+
 def _ranks_cli() -> dict:
     """The pretrain CLI on the card with one rank and the multi-rank
     flags, and its refusal of two ranks on one card."""
@@ -2150,13 +2382,17 @@ def _ranks_cli() -> dict:
 
 
 def phase_ranks(device: str = "cuda", full: dict = RANK_FULL,
-                batch: int = 64, nce_shape: int = 3072) -> dict:
+                batch: int = 64, nce_shape: int = 3072,
+                lc_full: dict = LC_FULL, dense_args: list = DENSE_ARGS
+                ) -> dict:
     """K7 against its plain version and the two-shard combine against
-    K5/K6; then the pretrain step on two ranks sharing the one card, over
-    gloo (NCCL refuses two ranks on one device), in four full-width
-    layouts and at a small f32 size, {data:1, model:2} held against one
-    rank; then the CLI's multi-rank flags on one rank and its refusal of
-    two ranks on one card."""
+    K5/K6; then on two ranks sharing the one card, over gloo (NCCL refuses
+    two ranks on one device): the pretrain step in four full-width layouts
+    and the LC finetune step in two, each also at a small f32 size with
+    {data:1, model:2} held against one rank, and the dense test on 2 ranks
+    against 1; then the pretrain CLI's multi-rank flags on one rank, both
+    CLIs' refusal of two ranks on one card, and the finetune CLI on two
+    CPU ranks."""
     import torch
     from dpc_tpu_torch.parallel import mesh as meshlib
 
@@ -2176,7 +2412,8 @@ def phase_ranks(device: str = "cuda", full: dict = RANK_FULL,
            if device == "cuda" else "the CPU")
     with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
         t0 = time.perf_counter()
-        ranks = meshlib.run_ranks(_ranks_body, 2, (tmp, device, full, batch),
+        ranks = meshlib.run_ranks(_ranks_body, 2, (tmp, device, full, batch,
+                                                   lc_full, dense_args),
                                   backend="gloo")
         took = time.perf_counter() - t0
         one = _one_rank_small(os.path.join(tmp, "one.pt"), device)
@@ -2184,6 +2421,9 @@ def phase_ranks(device: str = "cuda", full: dict = RANK_FULL,
                                     weights_only=True)
         _compare_small(one, ranks[0]["small_data1_model2"], load("one"),
                        load("data1_model2"))
+        one_lc = _one_rank_lc_small(os.path.join(tmp, "one_lc.pt"), device)
+        _compare_lc_small(one_lc, ranks[0]["small_lc_data1_model2"],
+                          load("one_lc"), load("lc_data1_model2"))
     rates = {}
     for name, mp, _ in RANK_LAYOUTS:
         for kind in (name, "small_" + name):
@@ -2193,7 +2433,9 @@ def phase_ranks(device: str = "cuda", full: dict = RANK_FULL,
             expect(len({r["digest"] for r in res}) == 1,
                    f"{kind}: the ranks' parameters differ after the steps")
         res = [r[name] for r in ranks]
-        kernels = SHARD_KERNELS if mp == 2 else PRETRAIN_KERNELS
+        # CPU tensors take the plain versions: no launches to count there
+        kernels = (SHARD_KERNELS if mp == 2 else PRETRAIN_KERNELS) if timed \
+            else ()
         for i, r in enumerate(res):
             expect(all(r["launches"][k] == RANK_STEPS for k in kernels),
                    f"{name} rank {i}: a kernel did not launch once a step: "
@@ -2203,19 +2445,50 @@ def phase_ranks(device: str = "cuda", full: dict = RANK_FULL,
             f"{mp}}}): losses {res[0]['losses']}; {rates[name]:.2f} clips/s "
             f"on {smi}, two ranks sharing one card over gloo (not a "
             f"multi-GPU rate); rank launches {[r['launches'] for r in res]}")
+    lc_launches = {}
+    for name, mp in LC_RANK_LAYOUTS:
+        for kind in (name, "small_" + name):
+            res = [r[kind] for r in ranks]
+            expect(all(math.isfinite(v) for r in res for v in r["losses"]),
+                   f"{kind}: non-finite loss {[r['losses'] for r in res]}")
+            expect(len({r["digest"] for r in res}) == 1,
+                   f"{kind}: the ranks' parameters or running statistics "
+                   "differ after the steps")
+        res = [r[name] for r in ranks]
+        for i, r in enumerate(res):
+            expect(all(r["launches"][k] == RANK_STEPS
+                       for k in (LC_KERNELS if timed else ())),
+                   f"{name} rank {i}: a kernel did not launch once a step: "
+                   f"{r['launches']}")
+        rates[name] = res[0]["clips_per_s"]
+        lc_launches[name] = res[0]["launches"]
+        log(f"[ranks] {name} (LC R18-128 8x5 B32 bf16, {{data:{2 // mp}, "
+            f"model:{mp}}}): losses {res[0]['losses']}; {rates[name]:.2f} "
+            f"clips/s on {smi}, two ranks sharing one card over gloo (not a "
+            f"multi-GPU rate); rank launches {[r['launches'] for r in res]}")
+    two, one = _check_dense_ranks(
+        [r["dense"] for r in ranks], 2, 1e-4,
+        f"[ranks] dense test (LC R18-128 8x5 f32, 4 synthetic videos) on "
+        f"{smi}, two ranks sharing one card,", timed)
+    dense = {"two": two, "one": one}
     log(f"[ranks] the two ranks' run took {took:.1f} s")
     cli = _ranks_cli() if device == "cuda" else {}
-    return {"k7": k7, "rates": rates, "smi": smi, **cli,
+    ft_cli = _ranks_finetune_cli() if device == "cuda" else {}
+    return {"k7": k7, "rates": rates, "smi": smi, **cli, **ft_cli,
+            "dense_windows_per_s": dense, "lc_launches": lc_launches,
             "launches": ranks[0]["data1_model2"]["launches"]}
 
 
-def _nccl_body(rank: int, n_model: int) -> dict:
-    """One rank a card over NCCL: the full-width step in the layouts of
-    phase 8 with the data axis over every card."""
-    from dpc_tpu_torch.core.config import DPCConfig
+def _nccl_body(rank: int, n_model: int, tmp: str) -> dict:
+    """One rank a card over NCCL: the full-width pretrain step in the
+    layouts of phase 8 with the data axis over every card, the LC step at
+    global batch 32 on every card and with a model axis, and
+    ``evaluate.run_test`` of the LC flagship on every card against one."""
+    import torch
+    from dpc_tpu_torch.core.config import DPCConfig, EvalConfig
     from dpc_tpu_torch.parallel import mesh as meshlib
 
-    meshlib.rank_device("cuda", rank)
+    dev = meshlib.rank_device("cuda", rank)
     out = {}
     for name, mp, fields in (("data_local", 1, dict(negatives="local")),
                              ("data_global", 1, dict(negatives="global")),
@@ -2226,23 +2499,64 @@ def _nccl_body(rank: int, n_model: int) -> dict:
         mesh = meshlib.make_mesh(0, model_parallel=mp)
         out[name] = dict(_rank_layout(mesh, DPCConfig(**RANK_FULL), fields,
                                       64, RANK_STEPS), shape=mesh.shape)
+    for name, mp in (("lc_data", 1), ("lc_data_model2", n_model)):
+        mesh = meshlib.make_mesh(0, model_parallel=mp)
+        out[name] = dict(_lc_rank_layout(mesh, DPCConfig(**LC_FULL),
+                                         EvalConfig(**LC_FULL_EVAL),
+                                         RANK_STEPS), shape=mesh.shape)
+    out["dense"] = _rank_dense_test(meshlib.make_mesh(0), tmp, str(dev),
+                                    NCCL_DENSE_ARGS, rank_wb=32)
+    torch.cuda.synchronize(dev)
     return out
 
 
+def _nccl_finetune_cli(n: int, tmp: str) -> None:
+    """The finetune CLI on ``n`` cards with a model axis of 2: 4 steps and
+    validation, then ``--test`` of the run on every card."""
+    common = ["--dataset", "synthetic", "--num_devices", str(n),
+              "--model_parallel", "2", "--num_workers", "4",
+              "--print_freq", "1"]
+    for what, extra in (
+            ("train", ["--batch_size", "32", "--epochs", "1",
+                       "--steps_per_epoch", "4", "--synthetic_videos",
+                       str(32 * n), "--log_dir", tmp]),
+            ("test", ["--test", None, "--synthetic_videos", "8",
+                      "--log_dir", os.path.join(tmp, "test")])):
+        if None in extra:
+            extra[1] = str(next(Path(tmp).glob("*/model")).parent)
+        proc = subprocess.run(
+            [sys.executable, "-m", "dpc_tpu_torch.train.evaluate", *common,
+             *extra], cwd=ROOT, capture_output=True, text=True, timeout=600)
+        for line in proc.stdout.splitlines():
+            log(f"[nccl finetune cli] {line}")
+        ok = ("[epoch 0] 4 train steps" in proc.stdout if what == "train"
+              else f"over {n} ranks" in proc.stdout)
+        expect(proc.returncode == 0 and ok,
+               f"the multi-card finetune CLI's {what} did not run: "
+               f"{proc.stderr[-3000:]}")
+
+
 def nccl_ranks(n: int) -> dict:
-    """The step and the pretrain CLI on ``n`` cards of one host over NCCL,
-    one rank a card (R18-128 B64 bf16, fused NCE): finite losses,
-    bit-identical parameters, the kernels launched on every rank, and
-    clips/s of each layout."""
+    """The steps and both CLIs on ``n`` cards of one host over NCCL, one
+    rank a card: the pretrain step (R18-128 B64 bf16, fused NCE) in four
+    layouts, the LC step (R18-128 8x5 B32 bf16) on the data axis and with
+    a model axis, finite losses, bit-identical parameters, the kernels
+    launched on every rank, and clips/s of each layout; the dense test
+    (``evaluate.run_test``) on every card against one: the same results
+    and its windows/s."""
     from dpc_tpu_torch.ops import _build
     from dpc_tpu_torch.parallel import mesh as meshlib
 
     _build.build()
-    ranks = meshlib.run_ranks(_nccl_body, n, (2,), backend="nccl")
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        ranks = meshlib.run_ranks(_nccl_body, n, (2, tmp), backend="nccl")
     rates = {}
     for name in ranks[0]:
+        if name == "dense":
+            continue
         res = [r[name] for r in ranks]
-        kernels = SHARD_KERNELS if name == "data_model2" else PRETRAIN_KERNELS
+        kernels = (SHARD_KERNELS if name == "data_model2" else
+                   LC_KERNELS if name.startswith("lc_") else PRETRAIN_KERNELS)
         expect(all(math.isfinite(v) for r in res for v in r["losses"]),
                f"{name}: non-finite loss")
         expect(len({r["digest"] for r in res}) == 1,
@@ -2251,8 +2565,14 @@ def nccl_ranks(n: int) -> dict:
                    for k in kernels), f"{name}: a kernel did not launch")
         rates[name] = res[0]["clips_per_s"]
         log(f"[nccl] {name} {res[0]['shape']}: losses {res[0]['losses']}; "
-            f"{rates[name]:.2f} clips/s")
-    # the CLI starts its ranks itself, which print to their own stdout
+            f"{rates[name]:.2f} clips/s; launches {res[0]['launches']}")
+    many, one = _check_dense_ranks(
+        [r["dense"] for r in ranks], n, 1e-3,
+        f"[nccl] dense test (evaluate.run_test, LC R18-128 8x5 bf16, "
+        f"{NCCL_DENSE_VIDEOS} synthetic videos rendered on each rank's "
+        f"host thread, 32 window rows a forward a card)", True)
+    dense = {"all": many, "one": one}
+    # the CLIs start their ranks themselves, which print to their own stdout
     with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
         proc = subprocess.run(
             [sys.executable, "-m", "dpc_tpu_torch.train.pretrain",
@@ -2262,11 +2582,13 @@ def nccl_ranks(n: int) -> dict:
              "1", "--num_devices", str(n), "--model_parallel", "2",
              "--negatives", "global", "--log_dir", tmp],
             cwd=ROOT, capture_output=True, text=True, timeout=600)
-    for line in proc.stdout.splitlines():
-        log(f"[nccl cli] {line}")
-    expect(proc.returncode == 0 and "[epoch 0] 4 train steps" in proc.stdout,
-           f"the multi-card CLI did not run: {proc.stderr[-3000:]}")
-    return rates
+        for line in proc.stdout.splitlines():
+            log(f"[nccl cli] {line}")
+        expect(proc.returncode == 0
+               and "[epoch 0] 4 train steps" in proc.stdout,
+               f"the multi-card CLI did not run: {proc.stderr[-3000:]}")
+        _nccl_finetune_cli(n, os.path.join(tmp, "finetune"))
+    return {**rates, "dense_windows_per_s": dense}
 
 
 # ---------------------------------------------------------------------------
@@ -2390,9 +2712,10 @@ def main(argv=None) -> int:
                          "RECIPE (device_augment or host) for this checkout "
                          "and the one under ROOT in turns; repeatable")
     ap.add_argument("--nccl", metavar="N", type=int, default=0,
-                    help="only run the step and the pretrain CLI on N cards "
-                         "over NCCL, one rank a card, and print their "
-                         "clips/s (no ok line)")
+                    help="only run the pretrain and LC steps, the dense "
+                         "test's forward and both CLIs on N cards over "
+                         "NCCL, one rank a card, and print their rates "
+                         "(no ok line)")
     args = ap.parse_args(argv)
     if args.rates:
         sys.path.insert(0, str(Path(args.rates).resolve()))
@@ -2422,7 +2745,7 @@ def main(argv=None) -> int:
             print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
             return 1
         print(smi)
-        print(json.dumps({"nccl_clips_per_s": rates, "cards": args.nccl}))
+        print(json.dumps({"nccl_rates": rates, "cards": args.nccl}))
         return 0
     if args.cli_rates:
         print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2431,15 +2754,23 @@ def main(argv=None) -> int:
         cli_rates([pair.split("=", 1) for pair in args.cli_rates])
         return 0
     t0 = time.perf_counter()
+
+    def timed(name, fn, *a):
+        start = time.perf_counter()
+        out = fn(*a)
+        log(f"[time] phase {name}: {time.perf_counter() - start:.1f} s")
+        return out
+
+    profile = args.profile or None
     try:
-        phase_build()
-        k = phase_kernels(args.profile or None)
-        s = phase_step(args.profile or None)
-        lc = phase_lc(args.profile or None)
-        phase_cli()
-        frames = phase_frames()
-        tools = phase_tools(s["ms_per_step"])
-        ranks = phase_ranks()
+        timed("build", phase_build)
+        k = timed("kernels", phase_kernels, profile)
+        s = timed("step", phase_step, profile)
+        lc = timed("lc", phase_lc, profile)
+        timed("cli", phase_cli)
+        frames = timed("frames", phase_frames)
+        tools = timed("tools", phase_tools, s["ms_per_step"])
+        ranks = timed("ranks", phase_ranks)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2451,7 +2782,9 @@ def main(argv=None) -> int:
     log(f"[lc] dense-test windows/s on {smi.stdout.strip()}: "
         f"{lc['dense_test_windows_per_s']}")
     log(f"[ranks] clips/s of two ranks sharing one card over gloo on "
-        f"{smi.stdout.strip()}: {json.dumps(ranks['rates'])}")
+        f"{smi.stdout.strip()}: {json.dumps(ranks['rates'])}; dense-test "
+        f"windows/s on 2 ranks / 1 rank: "
+        f"{json.dumps(ranks['dense_windows_per_s'])}")
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps(kernels_line(
         {**k, "k7": ranks["k7"]},

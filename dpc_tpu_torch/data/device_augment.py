@@ -145,6 +145,13 @@ class Draws:
         return Draws(**{f.name: move(getattr(self, f.name))
                         for f in dataclasses.fields(self)})
 
+    def rows(self, first: int, n: int) -> "Draws":
+        """The draws of samples ``first .. first + n`` (a model peer's
+        share of its data group's draws, ``parallel.mesh.peer_rows``)."""
+        return Draws(**{f.name: None if getattr(self, f.name) is None
+                        else getattr(self, f.name)[first:first + n]
+                        for f in dataclasses.fields(self)})
+
 
 def _uniform(gen: torch.Generator, shape, lo: float, hi: float
              ) -> torch.Tensor:

@@ -15,7 +15,8 @@ normalise, eps 1e-5.  The LC classifier keeps running statistics
 eval mode.  Under bf16 autocast the native kernels accumulate the
 statistics in f32.  ``batchnorm(bn, x, group)`` takes its batch statistics
 over a process group instead (``--cross_replica_bn``, and the model
-group of a clip-sharded step): ``dpc_tpu``'s ``batchnorm(axis_name=...)``.
+group of a clip-sharded pretrain or LC step): ``dpc_tpu``'s
+``batchnorm(axis_name=...)``.
 """
 
 from __future__ import annotations
@@ -108,23 +109,26 @@ def batchnorm3d(ch: int, track_running_stats: bool = False
                           track_running_stats=track_running_stats)
 
 
-def batchnorm(bn: nn.BatchNorm3d, x: torch.Tensor, group=None
-              ) -> torch.Tensor:
+def batchnorm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
+              group=None) -> torch.Tensor:
     """``bn(x)``, or with its batch statistics over the ranks of ``group``
     (None: this rank's batch, the module itself).  Over a group it is
-    ``dpc_tpu/models/layers.py:181-203``: the mean is ``pmean``'d, the
-    variance is the two-pass variance about that group mean, ``pmean``'d
-    (every rank holds as many elements), normalised in f32 and cast back
-    to ``x``'s dtype; with running statistics in train mode, their update
+    ``dpc_tpu/models/layers.py:181-203``, over every axis but the channel
+    axis 1 whatever the rank of ``x`` (the backbone's 5-D activations, the
+    LC head's ``[B, D]`` features): the mean is ``pmean``'d, the variance
+    is the two-pass variance about that group mean, ``pmean``'d (every
+    rank holds as many elements), normalised in f32 and cast back to
+    ``x``'s dtype; with running statistics in train mode, their update
     takes the unbiased variance over the global count.  Eval mode with
     running statistics is ``bn(x)``: there are no batch statistics to
     share."""
     if group is None or (bn.track_running_stats and not bn.training):
         return bn(x)
     xf = x.float()
-    dims = [0, 2, 3, 4]
+    dims = [0, *range(2, x.dim())]
+    shape = (1, -1) + (1,) * (x.dim() - 2)
     mean = collectives.pmean(xf.mean(dim=dims), group)
-    centred = xf - mean.view(1, -1, 1, 1, 1)
+    centred = xf - mean.view(shape)
     var = collectives.pmean(centred.square().mean(dim=dims), group)
     if bn.track_running_stats:
         count = x.numel() // x.shape[1] * collectives.size(group)
@@ -133,11 +137,13 @@ def batchnorm(bn: nn.BatchNorm3d, x: torch.Tensor, group=None
             bn.running_mean.mul_(1 - m).add_(m * mean)
             bn.running_var.mul_(1 - m).add_(
                 m * var * (count / max(count - 1, 1)))
+            bn.num_batches_tracked.add_(1)
     inv = torch.rsqrt(var + bn.eps) * bn.weight
-    y = centred * inv.view(1, -1, 1, 1, 1) + bn.bias.view(1, -1, 1, 1, 1)
+    y = centred * inv.view(shape) + bn.bias.view(shape)
     return y.to(x.dtype).contiguous(memory_format=(
         torch.channels_last_3d
-        if x.is_contiguous(memory_format=torch.channels_last_3d)
+        if x.dim() == 5
+        and x.is_contiguous(memory_format=torch.channels_last_3d)
         and not x.is_contiguous() else torch.contiguous_format))
 
 

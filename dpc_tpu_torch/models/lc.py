@@ -66,7 +66,7 @@ def running_stats(model: nn.Module) -> dict[str, torch.Tensor]:
 
 def apply_lc(model: LC, x: torch.Tensor, *, cfg: DPCConfig,
              train: bool = True, generator: Optional[torch.Generator] = None,
-             input_norm: Optional[tuple] = None
+             input_norm: Optional[tuple] = None, bn_group=None
              ) -> tuple[torch.Tensor, torch.Tensor, dict[str, torch.Tensor]]:
     """Forward.  x: ``[B, N, SL, H, W, 3]`` → (logits ``[B, 1, C]``,
     context ``[B, 1, D]``, running stats).
@@ -78,11 +78,16 @@ def apply_lc(model: LC, x: torch.Tensor, *, cfg: DPCConfig,
     outside autocast, as the JAX head computes in the f32 of its input.
     ``input_norm=(mean, std, scale)``: ``x`` is un-normalised ([0, 1] f32
     or raw uint8) and the stem conv normalises it
-    (``layers.conv3d_input_norm``).
+    (``layers.conv3d_input_norm``).  ``bn_group``: the process group over
+    which the backbone's BNs and ``final_bn`` take their batch statistics
+    in train mode (``layers.batchnorm``; ``dpc_tpu``'s ``axis_name``, the
+    model group of a clip-sharded step); eval mode uses the running
+    statistics and makes no collective call.
     """
     model.train(train)
     b, n, sl, h, w, c = x.shape
-    feat = model.backbone(x.reshape(b * n, sl, h, w, c), input_norm)
+    feat = model.backbone(x.reshape(b * n, sl, h, w, c), input_norm,
+                          bn_group)
     feat = F.relu(feat).float().mean(dim=1)        # ReLU before the pool
     ls = cfg.last_size
     feat = feat.reshape(b, n, ls, ls, cfg.feature_size)
@@ -91,7 +96,7 @@ def apply_lc(model: LC, x: torch.Tensor, *, cfg: DPCConfig,
         generator=generator, impl=cfg.gru_impl)
     context = outputs[:, -1].float().mean(dim=(1, 2))   # [B, D]
     with torch.autocast(x.device.type, enabled=False):
-        normed = model.final_bn(context)
+        normed = L.batchnorm(model.final_bn, context, bn_group)
         drop, fc = model.final_fc
         out = L.dropout(normed, drop.p, generator, train)
         logits = fc(out)

@@ -20,8 +20,9 @@ nothing.
     autograd (``pmax`` has no derivative in JAX; the sharded logsumexp
     uses it as a shift that cancels).
   * ``gather(x, group, dim)``, ``sum_(x, group)``, ``mean_(x, group)``,
-    ``broadcast_(tensors, group)``: outside autograd, for metrics,
-    gradients and the parameters a run starts from.
+    ``mean_flat_(tensors, group)``, ``broadcast_(tensors, group)``:
+    outside autograd, for metrics, gradients, running statistics and the
+    parameters a run starts from.
 """
 
 from __future__ import annotations
@@ -113,6 +114,21 @@ def mean_(x: torch.Tensor, group) -> torch.Tensor:
         dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
         x.div_(size(group))
     return x
+
+
+@torch.no_grad()
+def mean_flat_(tensors, group) -> None:
+    """Every tensor replaced by its mean over the group, in place, in one
+    all-reduce of one flat f32 buffer (the steps' gradients, metrics and
+    running statistics)."""
+    if group is None:
+        return
+    flat = torch.cat([t.reshape(-1).float() for t in tensors])
+    mean_(flat, group)
+    i = 0
+    for t in tensors:
+        t.copy_(flat[i:i + t.numel()].view_as(t))
+        i += t.numel()
 
 
 @torch.no_grad()

@@ -20,8 +20,16 @@ decodes uint8 windows (the scale and crop inside the JPEG decode), the
 finetune and val recipes run in the steps and the test recipe in the test
 forward, whose normalize ``--fold_normalize`` auto folds into the stem
 conv.  The finetune writes tensorboard scalars and the input grid under
-the run directory where ``tensorboardX`` imports.  Several devices raise
-(ROADMAP queue 1 item 13b).
+the run directory where ``tensorboardX`` imports.  Several devices run one
+rank each, started as the pretrain CLI starts them (``train/ranks.py``:
+``--num_devices N``, or torchrun with ``--multihost``): each rank loads
+``batch_size // ranks`` clips of its shard, the steps average the
+gradients, metrics and BN running statistics over the ranks
+(``--model_parallel`` shards the clips over a model axis whose BN spans
+the model group), rank 0 prints the lines and writes the checkpoints and
+tensorboard, a signal to one rank stops every rank at the same step, and
+the dense test splits the videos over the ranks and sums its per-video
+results over them.
 
 Usage:
   python -m dpc_tpu_torch.train.evaluate --dataset synthetic --epochs 1 \
@@ -30,6 +38,8 @@ Usage:
       --pretrain <pretrain run dir> --train_what ft --epochs 300
   python -m dpc_tpu_torch.train.evaluate --dataset ucf101 --data_root DIR \
       --test <finetune run dir> --device_augment --five_crop
+  python -m dpc_tpu_torch.train.evaluate --num_devices 4 --model_parallel 2 \
+      --batch_size 32 ...
 """
 
 from __future__ import annotations
@@ -38,8 +48,10 @@ import argparse
 import dataclasses
 import os
 import queue
+import sys
 import threading
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -55,7 +67,9 @@ from dpc_tpu_torch.data.loader import ClipLoader
 from dpc_tpu_torch.data.synthetic import SyntheticVideoDataset
 from dpc_tpu_torch.data.video_dataset import make_dataset
 from dpc_tpu_torch.models import lc
-from dpc_tpu_torch.train import finetune_step, loop, optim
+from dpc_tpu_torch.parallel import collectives
+from dpc_tpu_torch.parallel import mesh as meshlib
+from dpc_tpu_torch.train import finetune_step, loop, optim, ranks
 from dpc_tpu_torch.train.metrics import (AccuracyTable, ConfusionMeter,
                                          MetricBundle, write_log)
 
@@ -101,8 +115,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--data_root", default="")
     p.add_argument("--compute_dtype", default="bfloat16",
                    choices=["float32", "bfloat16"])
-    p.add_argument("--num_devices", default=0, type=int)
-    p.add_argument("--model_parallel", default=1, type=int)
+    p.add_argument("--num_devices", default=0, type=int,
+                   help="ranks to start, one a card (0: every visible "
+                        "card; one on the CPU)")
+    p.add_argument("--model_parallel", default=1, type=int,
+                   help="model axis: shard each data group's clips over "
+                        "this many ranks, BN statistics over them")
     p.add_argument("--num_workers", default=8, type=int)
     p.add_argument("--prefetch", default=4, type=int)
     p.add_argument("--worker_mode", default="thread",
@@ -128,13 +146,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help="append a final tail window so trailing frames are "
                         "evaluated (the reference strides only)")
     p.add_argument("--window_batch", default=0, type=int,
-                   help="dense-test pooled window rows per forward "
-                        "(0 = 8)")
+                   help="dense-test pooled window rows per forward over "
+                        "all ranks, rounded up to a multiple of the ranks "
+                        "(0 = 8 a rank)")
     p.add_argument("--five_crop", action="store_true",
                    help="dense test with the four corners and the centre; "
                         "the crops ride the window axis of the softmax "
                         "average")
-    p.add_argument("--multihost", action="store_true")
+    p.add_argument("--multihost", action="store_true",
+                   help="one rank of a torchrun job: join its process group "
+                        "(RANK, WORLD_SIZE, MASTER_ADDR...) and read this "
+                        "rank's shard of the data")
     p.add_argument("--device_augment", action="store_true",
                    help="host workers decode uint8 windows only; the "
                         "finetune, val and test recipes run on the device "
@@ -148,21 +170,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; cuda without a card fails")
     return p
-
-
-def _reject_unsupported(args) -> None:
-    later = {
-        "--num_devices": (args.num_devices > 1,
-                          "queue 1 item 13b (multi-GPU finetune)"),
-        "--model_parallel": (args.model_parallel > 1,
-                             "queue 1 item 13b (multi-GPU finetune)"),
-        "--multihost": (args.multihost,
-                        "queue 1 item 13b (multi-GPU finetune)"),
-    }
-    for flag, (bad, item) in later.items():
-        if bad:
-            raise SystemExit(f"{flag} is not ported to dpc_tpu_torch yet "
-                             f"(ROADMAP.md {item})")
 
 
 def config_from_args(args) -> ExperimentConfig:
@@ -246,8 +253,8 @@ def get_dataset(cfg: ExperimentConfig, mode: str, unit_test: bool = False):
 
 
 def run_test(cfg: ExperimentConfig, model: lc.LC, exp_dir: str, *,
-             window_batch: int = 0, unit_test: bool = False
-             ) -> tuple[float, float]:
+             window_batch: int = 0, unit_test: bool = False,
+             mesh: Optional[meshlib.Mesh] = None) -> tuple[float, float]:
     """Dense evaluation (``eval/test.py:303-342``): every video → windows →
     softmax averaged over its windows (and crops) → top-1/top-5 and the
     confusion matrix.  Windows are pooled across videos into one fixed
@@ -255,11 +262,24 @@ def run_test(cfg: ExperimentConfig, model: lc.LC, exp_dir: str, *,
     are dropped), and the host renders videos on a worker thread while the
     device runs.  Under ``--five_crop --device_augment`` each window row
     becomes K = 5 logit rows in the forward (the host five crops arrive as
-    rows already, K = 1).  Returns (loss, top1)."""
+    rows already, K = 1).
+
+    On several ranks (``mesh``) each rank evaluates the videos
+    ``rank::ranks`` on its own device, ``WB / ranks`` window rows a
+    forward, the global ``--window_batch`` (0: 8 a rank) rounded up to a
+    multiple of the ranks; the five per-video sums (float64) and the
+    confusion matrix (int64) are then summed over the ranks' host group,
+    and rank 0 alone prints the per-class table and writes the artifacts
+    (``dpc_tpu``'s multihost case, ``dpc_tpu/train/evaluate.py:281-306,
+    440-479``).  Returns (loss, top1), the same on every rank."""
     e = cfg.eval
     device = next(model.parameters()).device
+    ranks_n = mesh.size if mesh else 1
+    rank = mesh.rank if mesh else 0
     ds = get_dataset(cfg, "test", unit_test)
-    wb = window_batch or 8
+    wb = window_batch or 8 * ranks_n
+    wb = -(-wb // ranks_n) * ranks_n
+    rank_wb = wb // ranks_n
     k_crops = 5 if (e.five_crop and e.device_augment) else 1
     forward = finetune_step.make_test_forward(
         cfg.model, e, model,
@@ -271,7 +291,7 @@ def run_test(cfg: ExperimentConfig, model: lc.LC, exp_dir: str, *,
     def producer():
         rng = np.random.default_rng(0)
         try:
-            for i in range(len(ds)):
+            for i in range(rank, len(ds), ranks_n):
                 q.put((i, ds.sample(i, rng)))
         except Exception as exc:  # surfaced to the consumer below
             q.put(exc)
@@ -308,8 +328,9 @@ def run_test(cfg: ExperimentConfig, model: lc.LC, exp_dir: str, *,
         rows = np.concatenate(buf, axis=0)
         r = rows.shape[0]
         n_windows += r * k_crops
-        if r < wb:  # tail batch: pad with repeats, dropped below
-            rows = np.concatenate([rows, np.repeat(rows[-1:], wb - r, 0)])
+        if r < rank_wb:  # tail batch: pad with repeats, dropped below
+            rows = np.concatenate([rows,
+                                   np.repeat(rows[-1:], rank_wb - r, 0)])
         x = torch.from_numpy(rows).to(device)
         logits = forward(x).float().cpu().numpy()[:r * k_crops]
         ofs = 0
@@ -322,7 +343,7 @@ def run_test(cfg: ExperimentConfig, model: lc.LC, exp_dir: str, *,
         buf, meta = [], []
 
     t0 = time.perf_counter()
-    space = wb
+    space = rank_wb
     while True:
         item = q.get()
         if item is None:
@@ -340,50 +361,72 @@ def run_test(cfg: ExperimentConfig, model: lc.LC, exp_dir: str, *,
             space -= take
             if space == 0:
                 flush()
-                space = wb
+                space = rank_wb
     flush()
+    sums = torch.tensor([sum(top1s), sum(top5s), sum(losses), len(top1s),
+                         n_windows], dtype=torch.float64)
+    mat = torch.from_numpy(confusion.mat.astype(np.int64))
+    if mesh is not None:  # the ranks' host group: gloo, CPU tensors
+        collectives.sum_(sums, mesh.host_group)
+        collectives.sum_(mat, mesh.host_group)
+        confusion.mat = mat.numpy()
     dt = time.perf_counter() - t0
-
-    top1, top5 = float(np.mean(top1s)), float(np.mean(top5s))
-    loss = float(np.mean(losses))
+    *totals, n_videos, n_windows = sums.tolist()
+    top1, top5, loss = (v / n_videos if n_videos else float("nan")
+                        for v in totals)
     print(f"[test] loss {loss:.4f}; top1 {top1:.4f}; top5 {top5:.4f}")
-    print(f"[test] {n_windows} windows / {len(ds)} videos in {dt:.1f}s = "
-          f"{n_windows / dt:.1f} windows/s (WB={wb})")
+    print(f"[test] {int(n_windows)} windows / {len(ds)} videos in "
+          f"{dt:.1f}s = {n_windows / dt:.1f} windows/s (WB={wb}"
+          + (f" over {ranks_n} ranks)" if ranks_n > 1 else ")"))
     loop.report_fallbacks(ds)
-    table = AccuracyTable()
-    for t_cls in range(e.num_classes):
-        cnt = int(confusion.mat[:, t_cls].sum())
-        if cnt:
-            table.dict[t_cls] = {"count": cnt,
-                                 "correct": int(confusion.mat[t_cls, t_cls])}
-    table.print_table("test")
-    os.makedirs(exp_dir, exist_ok=True)
-    confusion.save(os.path.join(exp_dir, "confusion_matrix.txt"))
-    write_log(content=f"loss: {loss:.4f}; top1: {top1:.4f}; "
-                      f"top5: {top5:.4f}",
-              epoch=0, filename=os.path.join(exp_dir, "test_log.md"))
+    if rank == 0:
+        table = AccuracyTable()
+        for t_cls in range(e.num_classes):
+            cnt = int(confusion.mat[:, t_cls].sum())
+            if cnt:
+                table.dict[t_cls] = {
+                    "count": cnt, "correct": int(confusion.mat[t_cls, t_cls])}
+        table.print_table("test")
+        os.makedirs(exp_dir, exist_ok=True)
+        confusion.save(os.path.join(exp_dir, "confusion_matrix.txt"))
+        write_log(content=f"loss: {loss:.4f}; top1: {top1:.4f}; "
+                          f"top5: {top5:.4f}",
+                  epoch=0, filename=os.path.join(exp_dir, "test_log.md"))
     return loss, top1
 
 
 def main(argv=None) -> None:
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
-    _reject_unsupported(args)
+    device = resolve_device(args.device)
+    ranks.run(main, argv, args, device,
+              lambda n_data, n_model: finetune_step.check_layout(
+                  args.batch_size, n_data, n_model),
+              lambda world: _run(args, device, world))
+
+
+def _run(args, device: torch.device, world: int) -> None:
     cfg = config_from_args(args)
     m, e, t = cfg.model, cfg.eval, cfg.train
-    device = resolve_device(args.device)
+    mesh, device = ranks.mesh_and_device(device, world, t.model_parallel)
     print(f"device: {device}"
           + (f" ({torch.cuda.get_device_name(device)})"
              if device.type == "cuda" else "")
-          + f"; dtype={m.compute_dtype}")
+          + f"; dtype={m.compute_dtype}"
+          + (f"; devices: {mesh.shape}" if world > 1 else ""))
+    if mesh.size == 1:
+        mesh = None
+    rank0 = mesh is None or mesh.rank == 0
 
     exp_dir = (args.resume if args.resume else os.path.join(
         args.log_dir,
         f"{args.prefix}_{args.dataset}-{m.img_dim}-sp{args.split}"
         f"_r{m.network[6:]}_lc_bs{t.batch_size}_lr{e.lr}"
         f"_wd{e.wd}_dp{e.dropout}_train-{e.train_what}"))
-    os.makedirs(exp_dir, exist_ok=True)
-    with open(os.path.join(exp_dir, "config.json"), "w") as f:
-        f.write(cfg.to_json())
+    if rank0:
+        os.makedirs(exp_dir, exist_ok=True)
+        with open(os.path.join(exp_dir, "config.json"), "w") as f:
+            f.write(cfg.to_json())
 
     model = lc.build_lc(m, e.num_classes, device, dropout=e.dropout,
                         seed=LC_SEED)
@@ -401,11 +444,11 @@ def main(argv=None) -> None:
             print(f"loaded test checkpoint {args.test}"
                   + (f" epoch {epoch}" if epoch is not None else ""))
         run_test(cfg, model, exp_dir, window_batch=args.window_batch,
-                 unit_test=args.unit_test)
+                 unit_test=args.unit_test, mesh=mesh)
         return
 
     if args.pretrain:
-        ckpt.load_pretrained(args.pretrain, model)
+        ckpt.load_pretrained(args.pretrain, model, verbose=rank0)
     opt = optim.finetune_optimizer(model, e.lr, e.wd, e.train_what,
                                    e.backbone_lr_scale)
 
@@ -439,6 +482,9 @@ def main(argv=None) -> None:
             best_acc = float(payload["best_acc"])
             print(f"resumed mid-epoch: epoch {start_epoch} "
                   f"batch {start_batch}")
+    # every rank starts from rank 0's parameters and running statistics
+    collectives.broadcast_(list(model.parameters()) + list(model.buffers()),
+                           mesh and mesh.world_group)
 
     n_total = sum(p.numel() for p in model.parameters())
     trunk = sum(p.numel() for name in optim.TRUNK
@@ -448,35 +494,42 @@ def main(argv=None) -> None:
           f"); head at full lr")
     step = loop.RematRetry(
         lambda remat: finetune_step.make_finetune_step(
-            m, dataclasses.replace(e, remat=remat), model, opt),
-        model, opt, e.remat)
-    eval_step = finetune_step.make_finetune_eval_step(m, e, model)
+            m, dataclasses.replace(e, remat=remat), model, opt, mesh),
+        model, opt, e.remat, retry=mesh is None)
+    eval_step = finetune_step.make_finetune_eval_step(m, e, model, mesh)
     gen = torch.Generator(device=device)
     aug_gen = torch.Generator()  # the device recipe's draws, made on the host
     augmenting = e.device_augment
     to_device = loop.DeviceFeed(device)
 
     def loader(mode: str, seed: int) -> ClipLoader:
+        # each rank reads its shard, batch_size // ranks clips a batch
         return ClipLoader(get_dataset(cfg, mode, args.unit_test),
-                          t.batch_size, num_workers=cfg.data.num_workers,
+                          t.batch_size // world,
+                          num_workers=cfg.data.num_workers,
                           worker_mode=cfg.data.worker_mode,
                           prefetch_batches=cfg.data.prefetch, seed=seed,
-                          pin_memory=device.type == "cuda")
+                          pin_memory=device.type == "cuda",
+                          shard_id=mesh.rank if mesh else 0,
+                          num_shards=world)
 
     train_loader, val_loader = loader("train", t.seed), loader("val",
                                                                t.seed + 1)
     print(f"train videos: {len(train_loader.dataset)}; "
           f"val videos: {len(val_loader.dataset)}")
-    writer_train, writer_val = loop.open_tensorboard(exp_dir)
+    writer_train, writer_val = (loop.open_tensorboard(exp_dir) if rank0
+                                else (None, None))
 
     def save_mid_epoch(ep: int, batch_idx: int) -> None:
-        ckpt.save_step_unless_duplicate(
+        ckpt.write_on_rank0(lambda: ckpt.save_step_unless_duplicate(
             step_mgr, ckpt.mid_epoch_step_id(ep, batch_idx),
             lambda: {"epoch": ep, "batch_idx": batch_idx, "net": m.network,
                      "state_dict": model.state_dict(),
-                     "optimizer": opt.state_dict(), "best_acc": best_acc})
+                     "optimizer": opt.state_dict(), "best_acc": best_acc}),
+            mesh)
 
-    guard = loop.PreemptionGuard().install() if step_mgr else None
+    guard = (loop.PreemptionGuard(mesh and mesh.host_group).install()
+             if step_mgr else None)
     try:
         for epoch in range(start_epoch, e.epochs):
             train_loader.set_epoch(epoch)
@@ -486,10 +539,14 @@ def main(argv=None) -> None:
 
             def train_dispatch(idx, batch, epoch=epoch, lr_scale=lr_scale):
                 def reseed():
-                    gen.manual_seed(loop.step_seed(t.seed, epoch, idx))
+                    # per rank: data shards draw distinct streams, model
+                    # peers one augmentation stream and their own dropout
+                    gen.manual_seed(meshlib.dropout_seed(
+                        mesh, loop.step_seed(t.seed, epoch, idx)))
                     if augmenting:
-                        aug_gen.manual_seed(loop.step_seed(
-                            t.seed, epoch, idx, loop.TRAIN_AUGMENT))
+                        aug_gen.manual_seed(meshlib.data_seed(
+                            mesh, loop.step_seed(t.seed, epoch, idx,
+                                                 loop.TRAIN_AUGMENT)))
 
                 reseed()
                 return step(reseed, *to_device(batch), gen, lr_scale,
@@ -497,8 +554,9 @@ def main(argv=None) -> None:
 
             def val_dispatch(idx, batch, epoch=epoch):
                 if augmenting:
-                    aug_gen.manual_seed(loop.step_seed(t.seed, epoch, idx,
-                                                       loop.VAL_AUGMENT))
+                    aug_gen.manual_seed(meshlib.data_seed(
+                        mesh, loop.step_seed(t.seed, epoch, idx,
+                                             loop.VAL_AUGMENT)))
                 return eval_step(*to_device(batch), aug_gen)
 
             n_train = len(train_loader)
@@ -546,15 +604,17 @@ def main(argv=None) -> None:
                 writer_train.add_scalar("lr/scale", lr_scale, epoch)
             val_acc = va.get("top1", 0.0)
             best_acc = max(best_acc, val_acc)
-            write_log(content=f"train top1 {tr.get('top1', 0.0):.4f}; "
-                              f"val top1 {val_acc:.4f}",
-                      epoch=epoch,
-                      filename=os.path.join(exp_dir, "train_log.md"))
-            mgr.save(epoch + 1,
-                     {"epoch": epoch + 1, "net": m.network,
-                      "state_dict": model.state_dict(),
-                      "optimizer": opt.state_dict(), "best_acc": best_acc},
-                     val_acc=val_acc)
+            if rank0:
+                write_log(content=f"train top1 {tr.get('top1', 0.0):.4f}; "
+                                  f"val top1 {val_acc:.4f}",
+                          epoch=epoch,
+                          filename=os.path.join(exp_dir, "train_log.md"))
+            ckpt.write_on_rank0(lambda: mgr.save(
+                epoch + 1,
+                {"epoch": epoch + 1, "net": m.network,
+                 "state_dict": model.state_dict(),
+                 "optimizer": opt.state_dict(), "best_acc": best_acc},
+                val_acc=val_acc), mesh)
     finally:
         train_loader.close()
         val_loader.close()

@@ -18,7 +18,8 @@ go under the run directory where ``tensorboardX`` imports;
 in every step; ``--profile`` profiles the second train epoch.  The dropout
 and augmentation draws and the loader's order are derived from (seed,
 epoch, batch), so a resumed run computes what the uninterrupted run did.
-Several devices run one rank each (``parallel/mesh.py``): ``--num_devices
+Several devices run one rank each (``parallel/mesh.py``, started by
+``train/ranks.py`` as for the finetune CLI): ``--num_devices
 N`` starts N ranks from this process (0: every visible card, one rank on
 the CPU), NCCL on the cards and gloo with ``--device cpu``; under torchrun
 (or with ``--multihost``, which reads torchrun's environment) each
@@ -52,7 +53,6 @@ import sys
 import time
 
 import torch
-import torch.distributed as dist
 
 from dpc_tpu_torch.core import checkpoint as ckpt
 from dpc_tpu_torch.core.config import (DataConfig, DPCConfig,
@@ -66,7 +66,7 @@ from dpc_tpu_torch.data.video_dataset import make_dataset
 from dpc_tpu_torch.models import dpc as dpc_model
 from dpc_tpu_torch.parallel import collectives
 from dpc_tpu_torch.parallel import mesh as meshlib
-from dpc_tpu_torch.train import loop, optim, pretrain_step
+from dpc_tpu_torch.train import loop, optim, pretrain_step, ranks
 from dpc_tpu_torch.train.metrics import MetricBundle
 from dpc_tpu_torch.utils import profiling
 
@@ -241,95 +241,21 @@ def write_profile(path: str, prof, steps: int, batch_size: int,
     print(f"[profile] {summary}; table in {path}", flush=True)
 
 
-def _spawned_rank(rank: int, argv: list) -> str:
-    """A rank that ``--num_devices`` started: the run, in a process group
-    that ``mesh.run_ranks`` joined.  Returns the preemption exit's message,
-    or "" when the run ended."""
-    try:
-        main(argv)
-    except SystemExit as e:
-        if e.code in (None, 0):
-            return ""
-        if isinstance(e.code, str) and e.code.startswith("[preemption]"):
-            return e.code
-        raise
-    return ""
-
-
-def _ranks(args, device: torch.device) -> int:
-    """How many ranks this run has: the process group's when there is one
-    (spawned by ``--num_devices``, or torchrun's, joined here), else
-    ``--num_devices`` (0: every visible card; one on the CPU), which this
-    process then starts.  More ranks than cards is refused."""
-    backend = "nccl" if device.type == "cuda" else "gloo"
-    if args.multihost or meshlib.under_torchrun():
-        meshlib.init_multihost(backend)
-    if dist.is_initialized():
-        world = dist.get_world_size()
-        if args.num_devices and args.num_devices != world:
-            raise SystemExit(f"--num_devices {args.num_devices} but the "
-                             f"process group has {world} ranks")
-        return world
-    cards = torch.cuda.device_count() if device.type == "cuda" else 0
-    world = args.num_devices or max(cards, 1)
-    if device.type == "cuda" and world > cards:
-        raise SystemExit(f"--num_devices {world} needs {world} cards, one "
-                         f"rank a card; {cards} visible (ranks do not "
-                         "share a card)")
-    return world
-
-
-def _check_layout(t: TrainConfig, world: int) -> None:
-    """The divisibility and negatives rules of the steps, before any rank
-    starts: a bad layout exits with its reason."""
-    if t.batch_size % world:
-        raise SystemExit(f"--batch_size {t.batch_size} must be divisible by "
-                         f"{world} devices")
-    if world % t.model_parallel:
-        raise SystemExit(f"{world} devices not divisible by "
-                         f"--model_parallel {t.model_parallel}")
-    try:
-        pretrain_step.check_layout(t, world // t.model_parallel,
-                                   t.model_parallel)
-    except ValueError as e:
-        raise SystemExit(str(e)) from None
-
-
 def main(argv=None) -> None:
     argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
-    joined_here = not dist.is_initialized()
-    world = _ranks(args, device)
-    _check_layout(config_from_args(args).train, world)
-    if world > 1 and not dist.is_initialized():
-        backend = "nccl" if device.type == "cuda" else "gloo"
-        exits = [e for e in meshlib.run_ranks(_spawned_rank, world, (argv,),
-                                              backend=backend) if e]
-        if exits:
-            raise SystemExit(exits[0])
-        return
-    rank = dist.get_rank() if dist.is_initialized() else 0
-    stdout = sys.stdout
-    if rank:  # rank 0 prints the run's lines
-        sys.stdout = open(os.devnull, "w")
-    try:
-        _run(args, device, world)
-    finally:
-        if rank:
-            sys.stdout.close()
-            sys.stdout = stdout
-        if joined_here and dist.is_initialized():  # torchrun's group
-            dist.destroy_process_group()
+    t = config_from_args(args).train
+    ranks.run(main, argv, args, device,
+              lambda n_data, n_model: pretrain_step.check_layout(
+                  t, n_data, n_model),
+              lambda world: _run(args, device, world))
 
 
 def _run(args, device: torch.device, world: int) -> None:
     cfg = config_from_args(args)
     m, t = cfg.model, cfg.train
-    mesh = meshlib.make_mesh(world if world > 1 else 0, t.model_parallel)
-    if world > 1:
-        local = int(os.environ.get("LOCAL_RANK", mesh.rank))
-        device = meshlib.rank_device(device.type, local)
+    mesh, device = ranks.mesh_and_device(device, world, t.model_parallel)
     # gru_impl has no flag: the CLI runs the recurrence kernel, as the
     # library path does when its config asks for it
     m = dataclasses.replace(m, gru_impl="pallas")

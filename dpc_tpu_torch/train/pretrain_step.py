@@ -119,18 +119,6 @@ class _Layout:
             raise ValueError(f"batch of {batch.shape[0]} clips, the rank's "
                              f"share of the config's batch is {self.rank_b}")
 
-    def mean_over_ranks(self, tensors: list) -> None:
-        """Every tensor replaced by its mean over the ranks, in one
-        all-reduce of one flat buffer; nothing on one rank."""
-        if self.mesh is None:
-            return
-        flat = torch.cat([t.reshape(-1).float() for t in tensors])
-        C.mean_(flat, self.mesh.world_group)
-        i = 0
-        for t in tensors:
-            t.copy_(flat[i:i + t.numel()].view_as(t))
-            i += t.numel()
-
 
 def make_augment(model_cfg: DPCConfig, train_cfg: TrainConfig,
                  mesh: Optional[Mesh] = None
@@ -159,9 +147,7 @@ def make_augment(model_cfg: DPCConfig, train_cfg: TrainConfig,
         draws = device_augment.draw_pretrain(gen, n_draw, n * sl, h, w,
                                              recipe)
         if n_draw != b:
-            draws = device_augment.Draws(**{
-                k: None if v is None else v[first:first + b]
-                for k, v in vars(draws).items()})
+            draws = draws.rows(first, b)
         return device_augment.augment_batch(
             batch, draws.to(batch.device), model_cfg.img_dim, recipe=recipe,
             normalize_out=not fold)
@@ -220,7 +206,8 @@ def make_pretrain_step(model_cfg: DPCConfig, train_cfg: TrainConfig,
         if layout.mesh is not None:
             metrics = {k: metrics[k].clone() for k in METRICS}
             grads = [p.grad for p in params if p.grad is not None]
-            layout.mean_over_ranks(grads + list(metrics.values()))
+            C.mean_flat_(grads + list(metrics.values()),
+                         layout.mesh.world_group)
         optimizer.step()
         return metrics
 
@@ -301,7 +288,7 @@ def make_eval_step(model_cfg: DPCConfig, train_cfg: TrainConfig,
         metrics = {"loss": loss, **metrics}
         if layout.mesh is not None:
             metrics = {k: metrics[k].clone() for k in METRICS}
-            layout.mean_over_ranks(list(metrics.values()))
+            C.mean_flat_(list(metrics.values()), layout.mesh.world_group)
         return metrics
 
     return eval_step

@@ -33,19 +33,10 @@ from dpc_tpu_torch.core.config import DPCConfig, TrainConfig
 from dpc_tpu_torch.models import dpc, lc
 from dpc_tpu_torch.train import optim, pretrain_step
 from dpc_tpu_torch.utils.weights import dpc_state_dict_from_jax
+from torch_threads import one_thread  # noqa: F401
 
 SHAPE = dict(img_dim=32, num_seq=3, seq_len=4, pred_step=1, gru_dropout=0.0)
 B = 4
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Tier-1 runs six test workers on a few cores: one torch thread each
-    keeps the forwards here from oversubscribing them."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def _payload(value: float) -> dict:

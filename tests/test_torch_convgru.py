@@ -31,6 +31,7 @@ from dpc_tpu.ops import convgru_pallas
 from dpc_tpu_torch.models import convgru
 from dpc_tpu_torch.ops import convgru_cuda
 from dpc_tpu_torch.utils.weights import _CONVERT
+from torch_threads import one_thread  # noqa: F401
 
 
 def _packed(rng, cin, ch):

@@ -28,17 +28,10 @@ from dpc_tpu_torch.core.config import EvalConfig, TrainConfig
 from dpc_tpu_torch.data import device_augment as da
 from dpc_tpu_torch.models import layers
 from dpc_tpu_torch.utils.weights import _CONVERT
+from torch_threads import one_thread  # noqa: F401
 
 B, N, SL, H, W, D = 2, 2, 3, 40, 56, 16
 TOL = 1e-5
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def _clips(seed=0, h=H, w=W):

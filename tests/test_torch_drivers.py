@@ -22,21 +22,12 @@ import torch
 from dpc_tpu_torch.core import checkpoint as ckpt
 from dpc_tpu_torch.data.frame_tree import write_frame_tree
 from dpc_tpu_torch.train import evaluate, loop, pretrain
+from torch_threads import one_thread  # noqa: F401
 
 SMALL = ["--device", "cpu", "--img_dim", "32", "--num_seq", "3",
          "--seq_len", "4", "--ds", "1", "--batch_size", "2",
          "--num_workers", "2", "--compute_dtype", "float32",
          "--print_freq", "1", "--steps_per_epoch", "2"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Tier-1 runs six test workers on a few cores: one torch thread each
-    keeps these CLI runs from oversubscribing them."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 @pytest.fixture(scope="module")

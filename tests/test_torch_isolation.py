@@ -34,7 +34,8 @@ for name in ("models.lc", "ops.maxpool_cuda", "train.finetune_step",
              "core.checkpoint", "train.loop", "bench", "train.bench_loop",
              "train.bench_breakdown", "train.bench_input", "utils.profiling",
              "models.registry", "parallel.mesh", "parallel.collectives",
-             "parallel.dryrun", "ops.sharded_nce", "ops.nce_cuda"):
+             "parallel.dryrun", "ops.sharded_nce", "ops.nce_cuda",
+             "train.ranks"):
     assert "dpc_tpu_torch." + name in names, name
 print(len(names))
 """
@@ -52,7 +53,7 @@ def test_multi_rank_modules_import_no_jax():
     """The multi-rank modules, each imported alone with JAX and dpc_tpu
     blocked, pull in neither; nor does their source name them."""
     mods = ("parallel.mesh", "parallel.collectives", "parallel.dryrun",
-            "ops.sharded_nce", "ops.nce_cuda")
+            "ops.sharded_nce", "ops.nce_cuda", "train.ranks")
     probe = ("import importlib, sys\n"
              "for b in ('jax', 'jaxlib', 'dpc_tpu'):\n"
              "    sys.modules[b] = None\n"

@@ -32,6 +32,7 @@ from dpc_tpu_torch.models import dpc, lc
 from dpc_tpu_torch.train import finetune_step, optim
 from dpc_tpu_torch.utils.weights import (dpc_state_dict_from_jax,
                                          lc_state_dict_from_jax)
+from torch_threads import one_thread  # noqa: F401
 
 SHAPE = dict(img_dim=32, num_seq=3, seq_len=4, gru_dropout=0.0)
 B, CLASSES, LR, WD = 4, 7, 1e-3, 1e-3
@@ -102,10 +103,17 @@ def test_lc_forward_matches_jax(jax_lc_tree, train):
                                    err_msg=k)
 
 
+@pytest.fixture(scope="module")
+def jax_dpc_params():
+    """One dpc_tpu DPC initialisation for both context orders."""
+    return jax_dpc.init_dpc(jax.random.PRNGKey(1),
+                            JaxDPCConfig(**SHAPE, pred_step=1))
+
+
 @pytest.mark.parametrize("order", ["lc", "dpc"])
-def test_extract_context_matches_jax(order):
+def test_extract_context_matches_jax(jax_dpc_params, order):
     cfg = dict(SHAPE, pred_step=1)
-    jparams = jax_dpc.init_dpc(jax.random.PRNGKey(1), JaxDPCConfig(**cfg))
+    jparams = jax_dpc_params
     model = dpc.DPC(DPCConfig(**cfg))
     model.load_state_dict(dpc_state_dict_from_jax(_np_tree(jparams)),
                           strict=True)
@@ -120,14 +128,19 @@ def test_extract_context_matches_jax(order):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-def _jax_grads(params, state, x, labels):
-    def loss_fn(p):
-        logits, _, new_state = jax_lc.apply_lc(
-            p, state, x, cfg=JaxDPCConfig(**SHAPE), num_classes=CLASSES,
-            train=True)
-        return jax_ft.softmax_xent(logits[:, 0], labels), new_state
+def _jax_loss(params, state, x, labels):
+    logits, _, new_state = jax_lc.apply_lc(
+        params, state, x, cfg=JaxDPCConfig(**SHAPE), num_classes=CLASSES,
+        train=True)
+    return jax_ft.softmax_xent(logits[:, 0], labels), new_state
 
-    return jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(params)
+
+# one trace and compile for every test that takes dpc_tpu's gradients
+_jax_value_and_grad = jax.jit(jax.value_and_grad(_jax_loss, has_aux=True))
+
+
+def _jax_grads(params, state, x, labels):
+    return _jax_value_and_grad(params, state, x, labels)
 
 
 def _assert_first_adam_step(model, before, want_after, group_lr):

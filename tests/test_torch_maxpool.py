@@ -27,6 +27,7 @@ import jax.numpy as jnp
 from dpc_tpu.ops import maxpool_pallas
 from dpc_tpu_torch.models import layers as L
 from dpc_tpu_torch.ops import _build, maxpool_cuda as P
+from torch_threads import one_thread  # noqa: F401
 
 DTYPES = {"float32": (torch.float32, jnp.float32),
           "bfloat16": (torch.bfloat16, jnp.bfloat16)}

@@ -22,6 +22,7 @@ from dpc_tpu.models import resnet2d3d as jax_resnet
 from dpc_tpu_torch.core.config import DPCConfig
 from dpc_tpu_torch.models import dpc
 from dpc_tpu_torch.utils.weights import dpc_state_dict_from_jax
+from torch_threads import one_thread  # noqa: F401
 
 CFG = dict(img_dim=64, num_seq=4, seq_len=5, pred_step=2, gru_dropout=0.0)
 

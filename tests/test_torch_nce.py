@@ -28,6 +28,7 @@ import jax.numpy as jnp
 from dpc_tpu.ops import nce as jax_nce
 from dpc_tpu.ops import nce_pallas
 from dpc_tpu_torch.ops import nce, nce_cuda
+from torch_threads import one_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("r,c,d,shift", [

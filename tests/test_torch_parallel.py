@@ -1,13 +1,21 @@
-"""The port's multi-rank pretraining on CPU ranks (gloo, one thread a rank)
-against ``dpc_tpu``'s ``shard_map`` steps on the virtual 8-device mesh
-(Pallas in interpret mode), same weights, same numpy-seeded inputs, f32,
-``DPCConfig(img_dim=32, num_seq=3, seq_len=4, pred_step=1,
-gru_dropout=0.0)``, B=8.
+"""The port's multi-rank pretraining and LC finetune on CPU ranks (gloo,
+one thread a rank) against ``dpc_tpu``'s ``shard_map`` steps on the
+virtual 8-device mesh (Pallas in interpret mode), same weights, same
+numpy-seeded inputs, f32, ``DPCConfig(img_dim=32, num_seq=3, seq_len=4,
+pred_step=1, gru_dropout=0.0)``, B=8; the LC with 11 classes and dropout
+off, and the dense test of 5 synthetic videos on 2 ranks against 1 rank
+and against ``dpc_tpu``'s ``run_test`` on one device.
 
 The port's ranks are spawned twice for the whole module (2 ranks for the
 ``{data:2}`` layouts, 4 for ``{data:2, model:2}``), in background threads
-while ``dpc_tpu`` compiles its programs; each rank runs every task of its
-job and returns small results, rank 0 its updated parameters in a file.
+while ``dpc_tpu`` makes the weights (the ranks wait for them) and
+compiles its programs; each rank runs every task of its job and returns
+small results, rank 0 its updated parameters in a file.  The 2-rank job
+also runs the finetune CLI three times in its process group, as
+torchrun's ranks would: one epoch, the resume, the dense test.  The SGD
+update norm of a layout is the norm of the gradient its step averaged
+over the ranks (an SGD(lr=1) step moves the parameters by it; Adam
+leaves ``.grad`` as it is), read after the Adam step.
 
 Tolerances: K7 lse and gradients 1e-5 relative, ranks exact; the sharded
 loss 1e-5 relative, top-k exact, d(pred) and d(gt) 1e-4 of the largest;
@@ -24,15 +32,23 @@ cosine at least 0.99, and 99.5% of the parameters within 1e-4 of the
 largest; a step that averaged the wrong gradients would move about half
 of them the other way.  The SGD update-norm ratio of ``{data:2, model:2}`` to
 ``{data:2}`` is 1 within 1e-3 (a psum where the model mean belongs
-doubles it).
+doubles it).  The LC steps: loss and top-k 1e-4 relative, the BN running
+statistics within 1e-5 of each tensor's largest, the updated parameters
+as above, the SGD ratio of ``{data:2, model:2}`` to ``{data:2}`` 1 within
+1e-3; the 2-D group BN (the LC head's ``final_bn``) 1e-5 of the largest;
+the dense test's loss 1e-4 relative, top-1, top-5 and the confusion
+matrix equal.
 """
 
+import contextlib
+import io
 import math
 import os
 import signal
 import subprocess
 import sys
 import threading
+import time
 from pathlib import Path
 
 import numpy as np
@@ -44,21 +60,28 @@ import jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
 
 from dpc_tpu.core.config import DPCConfig as JaxDPCConfig
+from dpc_tpu.core.config import EvalConfig as JaxEvalConfig
 from dpc_tpu.core.config import TrainConfig as JaxTrainConfig
 from dpc_tpu.models import dpc as jax_dpc
 from dpc_tpu.models import layers as jax_layers
+from dpc_tpu.models import lc as jax_lc
 from dpc_tpu.ops import nce_pallas
 from dpc_tpu.ops import sharded_nce as jax_sharded_nce
 from dpc_tpu.parallel import mesh as jax_mesh
+from dpc_tpu.train import evaluate as jax_evaluate
+from dpc_tpu.train import finetune_step as jax_ft
 from dpc_tpu.train import optim as jax_optim
 from dpc_tpu.train import pretrain_step as jax_step
-from dpc_tpu_torch.core.config import DPCConfig, TrainConfig
-from dpc_tpu_torch.models import dpc, layers
+from dpc_tpu_torch.core.config import DPCConfig, EvalConfig, TrainConfig
+from dpc_tpu_torch.models import dpc, layers, lc
 from dpc_tpu_torch.ops import nce_cuda, sharded_nce
 from dpc_tpu_torch.parallel import dryrun
 from dpc_tpu_torch.parallel import mesh as meshlib
-from dpc_tpu_torch.train import optim, pretrain, pretrain_step
-from dpc_tpu_torch.utils.weights import dpc_state_dict_from_jax
+from dpc_tpu_torch.train import (evaluate, finetune_step, optim, pretrain,
+                                 pretrain_step)
+from dpc_tpu_torch.utils.weights import (dpc_state_dict_from_jax,
+                                         lc_state_dict_from_jax)
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 SHAPE = dict(img_dim=32, num_seq=3, seq_len=4, pred_step=1, gru_dropout=0.0)
@@ -74,11 +97,20 @@ LAYOUTS = {
 }
 NCE_SHAPE = (8, 3, 2, 2, 16)   # pred, gt: [B, P, S, S, D] over data=2
 BN_SHAPE = (8, 2, 3, 3, 8)     # channels-last x of the group BN, 4 ranks
+BN2_SHAPE = (8, 16)            # the LC head's [B, D] features, 4 ranks
+CLASSES, FT_WD = 11, 1e-3
+# the LC layouts: name: (ranks, model axis)
+FT_LAYOUTS = {"ft_data2": (2, 1), "ft_data2_model2": (4, 2)}
+# the dense test of both packages' CLIs, 5 synthetic videos of 19 windows
+TEST_ARGS = ["--dataset", "synthetic", "--img_dim", "32", "--num_seq", "3",
+             "--seq_len", "4", "--compute_dtype", "float32", "--num_class",
+             str(CLASSES), "--synthetic_videos", "5", "--test", "random",
+             "--num_devices", "1"]
 
 
 def _inputs():
     rng = np.random.default_rng(0)
-    return {
+    out = {
         "x": rng.normal(size=(B, 3, 4, 32, 32, 3)).astype(np.float32),
         "pred": rng.normal(size=NCE_SHAPE).astype(np.float32),
         "gt": rng.normal(size=NCE_SHAPE).astype(np.float32),
@@ -87,6 +119,17 @@ def _inputs():
         "bn_w": rng.uniform(0.5, 1.5, size=BN_SHAPE[-1]).astype(np.float32),
         "bn_b": rng.normal(size=BN_SHAPE[-1]).astype(np.float32),
     }
+    lc_rng = np.random.default_rng(1)
+    return {**out,
+            "lc_x": lc_rng.normal(size=(B, 3, 4, 32, 32, 3)).astype(
+                np.float32),
+            "lc_y": lc_rng.integers(0, CLASSES, size=B).astype(np.int64),
+            "bn2_x": lc_rng.normal(2.0, 1.5, size=BN2_SHAPE).astype(
+                np.float32),
+            "bn2_ct": lc_rng.normal(size=BN2_SHAPE).astype(np.float32),
+            "bn2_w": lc_rng.uniform(0.5, 1.5, size=BN2_SHAPE[-1]).astype(
+                np.float32),
+            "bn2_b": lc_rng.normal(size=BN2_SHAPE[-1]).astype(np.float32)}
 
 
 # ---------------------------------------------------------------------------
@@ -99,26 +142,26 @@ def _port_model(weights: str):
     return model
 
 
-def _port_step(mesh, tmp: str, name: str, sgd: bool, x: np.ndarray) -> dict:
+def _grad_norm(model) -> float:
+    """The norm of the gradient the step averaged over the ranks, which
+    is the norm of an SGD(lr=1) update (Adam leaves ``.grad`` as it is)."""
+    return math.sqrt(sum(float((p.grad ** 2).sum())
+                         for p in model.parameters() if p.grad is not None))
+
+
+def _port_step(mesh, tmp: str, name: str, x: np.ndarray) -> dict:
     world, mp, fields = LAYOUTS[name]
     cfg = DPCConfig(**SHAPE, gru_impl="pallas")
     tcfg = TrainConfig(batch_size=B, lr=LR, wd=WD, model_parallel=mp,
                        **fields)
     model = _port_model(os.path.join(tmp, "weights.pt"))
-    before = [p.detach().clone() for p in model.parameters()]
-    opt = (torch.optim.SGD(model.parameters(), lr=1.0) if sgd
-           else optim.pretrain_optimizer(model, LR, WD))
+    opt = optim.pretrain_optimizer(model, LR, WD)
     step = pretrain_step.make_pretrain_step(cfg, tcfg, model, opt, mesh)
     metrics = step(torch.from_numpy(meshlib.shard_batch(mesh, x)))
-    out = {"metrics": {k: float(v) for k, v in metrics.items()},
-           "digest": dryrun.param_digest(model)}
-    if sgd:
-        out["norm"] = math.sqrt(sum(
-            float(((p.detach() - q) ** 2).sum())
-            for p, q in zip(model.parameters(), before)))
-    elif mesh.rank == 0:
+    if mesh.rank == 0:
         torch.save(model.state_dict(), os.path.join(tmp, f"{name}.pt"))
-    return out
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "digest": dryrun.param_digest(model), "norm": _grad_norm(model)}
 
 
 def _port_nce(mesh, inp: dict) -> dict:
@@ -168,6 +211,108 @@ def _port_eval(mesh, tmp: str, x: np.ndarray) -> dict:
             ev(torch.from_numpy(meshlib.shard_batch(mesh, x))).items()}
 
 
+def _port_lc(tmp: str) -> lc.LC:
+    model = lc.LC(DPCConfig(**SHAPE), CLASSES, dropout=0.0)
+    model.load_state_dict(torch.load(os.path.join(tmp, "lc_weights.pt"),
+                                     weights_only=True))
+    return model
+
+
+def _port_finetune(mesh, tmp: str, name: str, inp: dict) -> dict:
+    ecfg = EvalConfig(num_classes=CLASSES, dropout=0.0, batch_size=B, lr=LR,
+                      wd=FT_WD)
+    model = _port_lc(tmp)
+    opt = optim.finetune_optimizer(model, LR, FT_WD)
+    step = finetune_step.make_finetune_step(
+        DPCConfig(**SHAPE, gru_impl="pallas"), ecfg, model, opt, mesh)
+    metrics = step(torch.from_numpy(meshlib.shard_batch(mesh, inp["lc_x"])),
+                   torch.from_numpy(meshlib.shard_batch(mesh, inp["lc_y"])))
+    if mesh.rank == 0:
+        torch.save(model.state_dict(), os.path.join(tmp, f"{name}.pt"))
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "digest": dryrun.param_digest(model),
+            "norm": _grad_norm(model)}
+
+
+def _port_ft_eval(mesh, tmp: str, inp: dict) -> dict:
+    ev = finetune_step.make_finetune_eval_step(
+        DPCConfig(**SHAPE, gru_impl="pallas"),
+        EvalConfig(num_classes=CLASSES, batch_size=B), _port_lc(tmp), mesh)
+    return {k: float(v) for k, v in ev(
+        torch.from_numpy(meshlib.shard_batch(mesh, inp["lc_x"])),
+        torch.from_numpy(meshlib.shard_batch(mesh, inp["lc_y"]))).items()}
+
+
+def _port_bn2d(mesh, inp: dict) -> dict:
+    per = BN2_SHAPE[0] // mesh.size
+    rows = slice(mesh.rank * per, (mesh.rank + 1) * per)
+    bn = torch.nn.BatchNorm1d(BN2_SHAPE[-1])
+    with torch.no_grad():
+        bn.weight.copy_(torch.from_numpy(inp["bn2_w"]))
+        bn.bias.copy_(torch.from_numpy(inp["bn2_b"]))
+    x = torch.tensor(inp["bn2_x"][rows], requires_grad=True)
+    y = layers.batchnorm(bn, x, mesh.world_group)
+    (y * torch.from_numpy(inp["bn2_ct"][rows])).sum().backward()
+    return {"y": y.detach().numpy(), "dx": x.grad.numpy(),
+            "dw": bn.weight.grad.numpy(), "db": bn.bias.grad.numpy(),
+            "running": (bn.running_mean.numpy(), bn.running_var.numpy())}
+
+
+def _read_test(exp_dir: str) -> dict:
+    """top-5 from ``test_log.md`` and the confusion matrix (either
+    package's run_test writes both)."""
+    log = Path(exp_dir, "test_log.md").read_text()
+    mat = Path(exp_dir, "confusion_matrix.txt")
+    return {"top5": float(log.split("top5: ")[-1].split()[0]),
+            "confusion": np.loadtxt(mat, dtype=np.int64) if mat.exists()
+            else None}
+
+
+def _port_test(mesh, tmp: str) -> dict:
+    """``run_test`` on this job's ranks (the window batch 8 a rank), then
+    on rank 0 alone with no mesh."""
+    cfg = evaluate.config_from_args(evaluate.build_parser().parse_args(
+        TEST_ARGS))
+    model = _port_lc(tmp)
+    out = {}
+    for n, m in ((mesh.size, mesh), (1, None)):
+        if m is None and mesh.rank:
+            break
+        exp_dir = os.path.join(tmp, f"test{n}")
+        loss, top1 = evaluate.run_test(cfg, model, exp_dir,
+                                       window_batch=8 * n, mesh=m)
+        out[n] = {"loss": loss, "top1": top1, "exp_dir": exp_dir}
+        if mesh.rank == 0:
+            out[n].update(_read_test(exp_dir))
+    return out
+
+
+FT_CLI = ["--device", "cpu", "--dataset", "synthetic", "--img_dim", "32",
+          "--num_seq", "3", "--seq_len", "4", "--batch_size", "4",
+          "--synthetic_videos", "8", "--num_workers", "1", "--compute_dtype",
+          "float32", "--print_freq", "1", "--steps_per_epoch", "2",
+          "--num_class", "8"]
+
+
+def _finetune_cli(tmp: str) -> dict:
+    """The finetune CLI three times in this rank's process group, as
+    torchrun's ranks run it: one epoch, the resume into a second, and the
+    dense test of the run.  Returns what this rank printed."""
+    log_dir = os.path.join(tmp, "cli")
+    out = {}
+    for what, argv in (("train", ["--epochs", "1", "--log_dir", log_dir]),
+                       ("resume", ["--epochs", "2", "--resume"]),
+                       ("test", ["--synthetic_videos", "5", "--test"])):
+        if what != "train":
+            (run,) = Path(log_dir).glob("*")
+            argv = argv + [str(run), "--log_dir", os.path.join(tmp, "cli_t")]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            evaluate.main(FT_CLI + argv)
+        out[what] = buf.getvalue()
+    return {**out, "run": str(run), "test_dir": os.path.join(tmp, "cli_t")}
+
+
 def _port_job(rank: int, tmp: str, inp: dict) -> dict:
     world = torch.distributed.get_world_size()
     mesh = meshlib.make_mesh(0, model_parallel=2 if world == 4 else 1)
@@ -175,13 +320,29 @@ def _port_job(rank: int, tmp: str, inp: dict) -> dict:
     if world == 4:
         out["nce"] = _port_nce(mesh, inp)
         out["bn"] = _port_bn(mesh, inp)
-        out["eval"] = _port_eval(mesh, tmp, inp["x"])
+        out["bn2d"] = _port_bn2d(mesh, inp)
         out["dryrun"] = dryrun._dryrun_rank(rank, 2, 4)
+    # the weights are written while the ranks start
+    while not os.path.exists(os.path.join(tmp, "ready")):
+        time.sleep(0.05)
+    if world == 4:
+        out["eval"] = _port_eval(mesh, tmp, inp["x"])
+        out["ft_eval"] = _port_ft_eval(mesh, tmp, inp)
+    else:
+        out["test"] = _port_test(mesh, tmp)
     for name, (n, _, _) in LAYOUTS.items():
         if n == world:
-            out[name] = _port_step(mesh, tmp, name, False, inp["x"])
-    sgd = "data2_model2" if world == 4 else "data2_global"
-    out["sgd"] = _port_step(mesh, tmp, sgd, True, inp["x"])
+            out[name] = _port_step(mesh, tmp, name, inp["x"])
+    for name, (n, _) in FT_LAYOUTS.items():
+        if n == world:
+            out[name] = _port_finetune(mesh, tmp, name, inp)
+    if world == 2:
+        out["cli"] = _finetune_cli(tmp)
+        with contextlib.redirect_stdout(io.StringIO()):
+            out["preempted"] = _preempted_rank(rank, FT_CLI + [
+                "--epochs", "1", "--synthetic_videos", "16",
+                "--steps_per_epoch", "4", "--save_every_steps", "100",
+                "--log_dir", os.path.join(tmp, "cli_p")], evaluate.main)
     return out
 
 
@@ -257,15 +418,89 @@ def _jax_bn(inp) -> dict:
             "dw": np.asarray(dw), "db": np.asarray(db)}
 
 
+def _jax_finetune(lparams, lstate, inp) -> dict:
+    """dpc_tpu's finetune step on each LC layout's virtual mesh, and its
+    eval step on the model-axis one."""
+    jcfg = JaxDPCConfig(**SHAPE)
+    ecfg = JaxEvalConfig(num_classes=CLASSES, dropout=0.0, batch_size=B,
+                         lr=LR, wd=FT_WD)
+    out = {}
+    for name, (n, mp) in FT_LAYOUTS.items():
+        mesh = jax_mesh.make_mesh(n, model_parallel=mp)
+        xb = jax_mesh.shard_batch(mesh, jnp.asarray(inp["lc_x"]))
+        yb = jax_mesh.shard_batch(mesh, jnp.asarray(inp["lc_y"], jnp.int32))
+        tx = jax_optim.finetune_optimizer(lparams, LR, FT_WD, "ft", 0.1)
+        state = jax_ft.FinetuneState(lparams, lstate, tx.init(lparams),
+                                     jnp.zeros((), jnp.int32))
+        state, m = jax_ft.make_finetune_step(jcfg, ecfg, mesh, tx,
+                                             donate=False)(
+            state, xb, yb, jax.random.PRNGKey(1), jnp.float32(1.0))
+        out[name] = ({k: float(v) for k, v in m.items()},
+                     lc_state_dict_from_jax(
+                         jax.tree.map(np.asarray, state.params),
+                         jax.tree.map(np.asarray, state.state)))
+        if mp == 2:
+            ev = jax_ft.make_finetune_eval_step(jcfg, ecfg, mesh)
+            out["ft_eval"] = {k: float(v) for k, v in ev(
+                lparams, lstate, xb, yb, jax.random.PRNGKey(1)).items()}
+    return out
+
+
+def _jax_test(lparams, lstate, tmp: str) -> dict:
+    """dpc_tpu's ``run_test`` on one device with the same weights; its
+    confusion matrix is taken where it would be plotted."""
+    cfg = jax_evaluate.config_from_args(jax_evaluate.build_parser(
+        ).parse_args(TEST_ARGS))
+    mats = []
+
+    class Recorded(jax_evaluate.ConfusionMeter):
+        def plot_mat(self, path, *args, **kwargs):
+            mats.append(self.mat.copy())
+
+    exp_dir = os.path.join(tmp, "jax_test")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_evaluate, "ConfusionMeter", Recorded)
+        loss, top1 = jax_evaluate.run_test(cfg, lparams, lstate, exp_dir,
+                                           window_batch=8)
+    return {"loss": loss, "top1": top1, **_read_test(exp_dir),
+            "confusion": mats[0]}
+
+
+def _jax_bn2d(inp) -> dict:
+    """dpc_tpu's ``layers.batchnorm`` with ``axis_name`` and running
+    statistics on a 2-D input over 4 devices: outputs, gradients and the
+    updated statistics."""
+    mesh = jax_mesh.make_mesh(4)
+    d = BN2_SHAPE[-1]
+    params = {"scale": jnp.asarray(inp["bn2_w"]),
+              "bias": jnp.asarray(inp["bn2_b"])}
+    state = {"mean": jnp.zeros(d), "var": jnp.ones(d)}
+
+    def body(x, p, ct):
+        def f(x, p):
+            y, new = jax_layers.batchnorm(p, state, x, train=True,
+                                          axis_name="data")
+            return jnp.sum(y * ct), (y, new)
+        (_, (y, new)), (dx, dp) = jax.value_and_grad(
+            f, argnums=(0, 1), has_aux=True)(x, p)
+        return (y, dx, dp["scale"][None], dp["bias"][None], new["mean"],
+                new["var"])
+
+    y, dx, dw, db, mean, var = jax.jit(jax.shard_map(
+        body, mesh=mesh, in_specs=(P("data"), P(), P("data")),
+        out_specs=(P("data"),) * 4 + (P(), P()), check_vma=False))(
+        jnp.asarray(inp["bn2_x"]), params, jnp.asarray(inp["bn2_ct"]))
+    return {"y": np.asarray(y), "dx": np.asarray(dx), "dw": np.asarray(dw),
+            "db": np.asarray(db), "running": (np.asarray(mean),
+                                              np.asarray(var))}
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Both sides of every comparison: the port's two rank jobs run in
     background threads while dpc_tpu compiles and runs its programs."""
     tmp = str(tmp_path_factory.mktemp("ranks"))
     inp = _inputs()
-    jparams = jax_dpc.init_dpc(jax.random.PRNGKey(0), JaxDPCConfig(**SHAPE))
-    before = dpc_state_dict_from_jax(jax.tree.map(np.asarray, jparams))
-    torch.save(before, os.path.join(tmp, "weights.pt"))
     port, errors = {}, []
 
     def job(world):
@@ -277,17 +512,32 @@ def runs(tmp_path_factory):
     threads = [threading.Thread(target=job, args=(w,)) for w in (4, 2)]
     for t in threads:
         t.start()
+    try:
+        jparams = jax_dpc.init_dpc(jax.random.PRNGKey(0),
+                                   JaxDPCConfig(**SHAPE))
+        before = dpc_state_dict_from_jax(jax.tree.map(np.asarray, jparams))
+        torch.save(before, os.path.join(tmp, "weights.pt"))
+        lparams, lstate = jax_lc.init_lc(jax.random.PRNGKey(2),
+                                         JaxDPCConfig(**SHAPE), CLASSES)
+        lc_before = lc_state_dict_from_jax(
+            jax.tree.map(np.asarray, lparams),
+            jax.tree.map(np.asarray, lstate))
+        torch.save(lc_before, os.path.join(tmp, "lc_weights.pt"))
+    finally:
+        Path(tmp, "ready").touch()  # the ranks wait for the weights
     ref = {"steps": _jax_steps(jparams, inp["x"]), "nce": _jax_nce(inp),
-           "bn": _jax_bn(inp)}
+           "bn": _jax_bn(inp), "ft": _jax_finetune(lparams, lstate, inp),
+           "test": _jax_test(lparams, lstate, tmp), "bn2d": _jax_bn2d(inp)}
     for t in threads:
         t.join(timeout=600)
         assert not t.is_alive(), "a rank job did not finish"
     if errors:
         raise errors[0]
     params = {name: torch.load(os.path.join(tmp, f"{name}.pt"),
-                               weights_only=True) for name in LAYOUTS}
+                               weights_only=True)
+              for name in [*LAYOUTS, *FT_LAYOUTS]}
     return {"port": port, "ref": ref, "inp": inp, "before": before,
-            "params": params}
+            "lc_before": lc_before, "params": params, "tmp": tmp}
 
 
 def _rel(a, b) -> float:
@@ -419,8 +669,8 @@ def test_model_axis_equals_data_only_layout(runs):
         np.testing.assert_allclose(mp[k], dp[k], rtol=1e-4, err_msg=k)
     _assert_params_close(runs["params"]["data2_model2"],
                          runs["params"]["data2_global"], runs["before"])
-    ratio = (runs["port"][4][0]["sgd"]["norm"]
-             / runs["port"][2][0]["sgd"]["norm"])
+    ratio = (runs["port"][4][0]["data2_model2"]["norm"]
+             / runs["port"][2][0]["data2_global"]["norm"])
     assert abs(ratio - 1.0) <= 1e-3, ratio
 
 
@@ -442,6 +692,113 @@ def test_dryrun_body_takes_one_finite_step(runs):
     assert all(math.isfinite(r["loss"]) and r["steps"] == [1]
                for r in results)
     assert len({r["digest"] for r in results}) == 1
+
+
+# ---------------------------------------------------------------------------
+# (i) the LC path: the finetune and eval steps, the 2-D group BN, the dense
+# test across ranks
+# ---------------------------------------------------------------------------
+
+def _split_lc(sd: dict) -> tuple[dict, dict]:
+    """(parameters, running statistics) of an LC state_dict."""
+    stats = {k: v for k, v in sd.items() if "running" in k}
+    return ({k: v for k, v in sd.items()
+             if k not in stats and "num_batches" not in k}, stats)
+
+
+def _assert_stats_close(got: dict, want: dict) -> None:
+    for k, w in want.items():
+        assert _rel(got[k], w) <= 1e-5, k
+
+
+@pytest.mark.parametrize("name", list(FT_LAYOUTS))
+def test_finetune_step_matches_dpc_tpu(runs, name):
+    world = FT_LAYOUTS[name][0]
+    want_m, want_sd = runs["ref"]["ft"][name]
+    results = [res[name] for res in runs["port"][world]]
+    for res in results:
+        for k, v in want_m.items():
+            np.testing.assert_allclose(res["metrics"][k], v, rtol=1e-4,
+                                       err_msg=k)
+    # the same update and the same running statistics on every rank
+    assert len({res["digest"] for res in results}) == 1
+    got_p, got_s = _split_lc(runs["params"][name])
+    want_p, want_s = _split_lc(want_sd)
+    _assert_params_close(got_p, want_p, runs["lc_before"])
+    _assert_stats_close(got_s, want_s)
+
+
+def test_finetune_model_axis_equals_data_only_layout(runs):
+    """{data:2, model:2} computes what {data:2} computes: loss and top-k,
+    the Adam update, the running statistics (BN over the model group,
+    then averaged over every rank), and the SGD update's norm (a psum
+    where the mean belongs would scale it)."""
+    mp = runs["port"][4][0]["ft_data2_model2"]["metrics"]
+    dp = runs["port"][2][0]["ft_data2"]["metrics"]
+    for k in dp:
+        np.testing.assert_allclose(mp[k], dp[k], rtol=1e-4, err_msg=k)
+    mp_p, mp_s = _split_lc(runs["params"]["ft_data2_model2"])
+    dp_p, dp_s = _split_lc(runs["params"]["ft_data2"])
+    _assert_params_close(mp_p, dp_p, runs["lc_before"])
+    _assert_stats_close(mp_s, dp_s)
+    ratio = (runs["port"][4][0]["ft_data2_model2"]["norm"]
+             / runs["port"][2][0]["ft_data2"]["norm"])
+    assert abs(ratio - 1.0) <= 1e-3, ratio
+
+
+def test_finetune_eval_step_matches_dpc_tpu(runs):
+    want = runs["ref"]["ft"]["ft_eval"]
+    for res in runs["port"][4]:
+        for k, v in want.items():
+            np.testing.assert_allclose(res["ft_eval"][k], v, rtol=1e-4,
+                                       err_msg=k)
+
+
+def test_group_batchnorm_2d_matches_dpc_tpu(runs):
+    """The LC head's ``final_bn`` over a group: ``[B, D]`` features, batch
+    statistics over 4 ranks, outputs, gradients and the running
+    statistics' update against ``dpc_tpu``'s ``batchnorm(axis_name=)``."""
+    want = runs["ref"]["bn2d"]
+    per = BN2_SHAPE[0] // 4
+    for r, res in enumerate(runs["port"][4]):
+        got = res["bn2d"]
+        rows = slice(r * per, (r + 1) * per)
+        assert _rel(got["y"], want["y"][rows]) <= 1e-5
+        assert _rel(got["dx"], want["dx"][rows]) <= 1e-5
+        assert _rel(got["dw"], want["dw"][r]) <= 1e-5
+        assert _rel(got["db"], want["db"][r]) <= 1e-5
+        for g, w in zip(got["running"], want["running"]):
+            assert _rel(g, w) <= 1e-5
+
+
+def test_dense_test_on_two_ranks_matches_one_rank_and_dpc_tpu(runs):
+    """``run_test`` splits the 5 videos over 2 ranks (3 and 2) and sums
+    their results on the host group: the same loss, top-1, top-5 and
+    confusion matrix as one rank and as ``dpc_tpu``'s ``run_test`` on one
+    device; every rank returns the summed result."""
+    want = runs["ref"]["test"]
+    two = [res["test"][2] for res in runs["port"][2]]
+    one = runs["port"][2][0]["test"][1]
+    assert two[0]["loss"] == two[1]["loss"] and two[0]["top1"] == two[1][
+        "top1"]
+    for got in (two[0], one):
+        np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-4)
+        assert got["top1"] == want["top1"] and got["top5"] == want["top5"]
+        np.testing.assert_array_equal(got["confusion"], want["confusion"])
+    assert int(want["confusion"].sum()) == 5
+
+
+def test_dryrun_body_runs_the_finetune_half(runs):
+    """``dryrun_multichip(4)``'s finetune half on the module's 4 ranks:
+    one clip-sharded LC step with the device recipe (finite loss, one
+    Adam step, the same parameters and running statistics on every rank)
+    and the dense-test forward's ``[2·4, classes]`` finite logits."""
+    results = [res["dryrun"] for res in runs["port"][4]]
+    assert all(math.isfinite(r["ft_loss"]) and r["ft_steps"] == [1]
+               for r in results)
+    assert len({r["ft_digest"] for r in results}) == 1
+    assert all(r["test_logits"] == (8, dryrun.CLASSES) and r["test_finite"]
+               for r in results)
 
 
 # ---------------------------------------------------------------------------
@@ -480,6 +837,52 @@ def test_cli_refuses_bad_layouts_before_starting_ranks(monkeypatch):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     with pytest.raises(SystemExit, match="needs 2 cards"):
         pretrain.main(base + ["--num_devices", "2"])
+
+
+CPU = ["--device", "cpu"]
+
+
+@pytest.mark.parametrize("case", [
+    (CPU + ["--num_devices", "3"], "8 must be divisible by 3 devices"),
+    (CPU + ["--num_devices", "3", "--test", "random", "--batch_size", "4"],
+     "4 must be divisible by 3 devices"),
+    (CPU + ["--num_devices", "16"], "8 must be divisible by 16 devices"),
+    (CPU + ["--multihost", "--device_augment", "--num_devices", "3"],
+     "8 must be divisible by 3 devices"),
+    (CPU + ["--multihost", "--num_devices", "2", "--batch_size", "3"],
+     "3 must be divisible by 2 devices"),
+    (CPU + ["--num_devices", "3", "--model_parallel", "2", "--batch_size",
+            "6"], "3 devices not divisible by --model_parallel 2"),
+    (CPU + ["--model_parallel", "2"],
+     "1 devices not divisible by --model_parallel 2"),
+    (CPU + ["--model_parallel", "4", "--test", "random"],
+     "1 devices not divisible by --model_parallel 4"),
+    (CPU + ["--model_parallel", "2", "--five_crop"],
+     "1 devices not divisible by --model_parallel 2"),
+    (CPU + ["--multihost", "--model_parallel", "2", "--test", "random"],
+     "1 devices not divisible by --model_parallel 2"),
+    (["--num_devices", "2"], "needs 2 cards"),
+    (["--num_devices", "4", "--model_parallel", "2"], "needs 4 cards")],
+    ids=["batch", "batch-test", "batch-16", "batch-multihost-augment",
+         "batch-multihost", "model", "model-one-rank", "model4-test",
+         "model-five-crop", "model-multihost", "cards", "cards-model"])
+def test_finetune_cli_refuses_bad_layouts_before_starting_ranks(
+        monkeypatch, case):
+    """The finetune CLI refuses a batch the ranks do not divide, ranks the
+    model axis does not divide (on one rank too, with or without the
+    dense test, the five crops or ``--multihost``), and more ranks than
+    cards (one card here), each before it starts a rank."""
+    argv, reason = case
+
+    def no_ranks(*args, **kwargs):
+        raise AssertionError("a rank was started")
+
+    monkeypatch.setattr(meshlib, "run_ranks", no_ranks)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(SystemExit, match=reason):
+        evaluate.main(["--dataset", "synthetic", "--batch_size", "8",
+                       *argv])
 
 
 def test_seed_streams_follow_the_layout():
@@ -537,14 +940,15 @@ def test_cli_two_ranks_trains_checkpoints_and_resumes(tmp_path):
     assert (run / "epoch2.pth.tar").exists()
 
 
-def _preempted_rank(rank: int, argv: list) -> dict:
-    """Run the CLI as one rank; rank 1 sends itself SIGTERM as step 1 is
-    seeded.  Returns the step positions this rank checkpointed at and its
-    exit message."""
+def _preempted_rank(rank: int, argv: list, main=pretrain.main) -> dict:
+    """Run a CLI's ``main`` as one rank; rank 1 sends itself SIGTERM as
+    train step 1 is seeded.  Returns the train steps this rank seeded,
+    the step positions it computed a checkpoint name for (rank 0 alone
+    does in the finetune CLI) and its exit message."""
     from dpc_tpu_torch.core import checkpoint as ck
     from dpc_tpu_torch.train import loop
 
-    saved = []
+    saved, seeded = [], set()
     step_id, step_seed = ck.mid_epoch_step_id, loop.step_seed
 
     def spy_id(epoch, batch_idx, offset=0):
@@ -552,16 +956,21 @@ def _preempted_rank(rank: int, argv: list) -> dict:
         return step_id(epoch, batch_idx, offset)
 
     def seed(s, epoch, idx, *stream):
+        if not stream:
+            seeded.add((epoch, idx))
         if rank == 1 and idx == 1 and not stream:
             os.kill(os.getpid(), signal.SIGTERM)
         return step_seed(s, epoch, idx, *stream)
 
     ck.mid_epoch_step_id, loop.step_seed = spy_id, seed
+    out = {"saved": saved, "seeded": seeded, "exit": ""}
     try:
-        pretrain.main(argv)
+        main(argv)
     except SystemExit as e:
-        return {"saved": saved, "exit": str(e.code)}
-    return {"saved": saved, "exit": ""}
+        out["exit"] = str(e.code)
+    finally:
+        ck.mid_epoch_step_id, loop.step_seed = step_id, step_seed
+    return out
 
 
 def test_signal_to_one_rank_checkpoints_every_rank_at_one_step(tmp_path):
@@ -569,8 +978,63 @@ def test_signal_to_one_rank_checkpoints_every_rank_at_one_step(tmp_path):
                   "--epochs", "1", "--save_every_steps", "100",
                   "--log_dir", str(tmp_path)]
     results = meshlib.run_ranks(_preempted_rank, 2, (argv,))
+    assert [r["seeded"] for r in results] == [{(0, 0), (0, 1)}] * 2, results
     assert [r["saved"] for r in results] == [[(0, 1)], [(0, 1)]], results
     assert all(r["exit"].startswith("[preemption]") for r in results)
     (step_file,) = tmp_path.glob("*/model_steps/step*.pth.tar")
     payload = torch.load(step_file, weights_only=True)
     assert (payload["epoch"], payload["batch_idx"]) == (0, 1)
+
+
+def test_signal_to_one_finetune_rank_checkpoints_every_rank_at_one_step(
+        runs):
+    """The finetune CLI in the 2-rank job: rank 1 alone is signalled at
+    train step 1, and both ranks stop after that step, rank 0 writing the
+    one step checkpoint."""
+    results = [res["preempted"] for res in runs["port"][2]]
+    assert [r["seeded"] for r in results] == [{(0, 0), (0, 1)}] * 2, results
+    assert [r["saved"] for r in results] == [[(0, 1)], []], results
+    assert all(r["exit"].startswith("[preemption]") for r in results)
+    tmp = Path(runs["tmp"], "cli_p")
+    (step_file,) = tmp.glob("*/model_steps/step*.pth.tar")
+    payload = torch.load(step_file, weights_only=True)
+    assert (payload["epoch"], payload["batch_idx"]) == (0, 1)
+
+
+# ---------------------------------------------------------------------------
+# (j) the finetune CLI on the module's two CPU ranks: train, resume, test
+# ---------------------------------------------------------------------------
+
+def test_finetune_cli_two_ranks_trains_resumes_and_tests(runs):
+    """The finetune CLI run by the 2-rank job as torchrun's ranks run it:
+    one epoch with its checkpoint, rank 0 alone printing and writing; the
+    resume into a second epoch; ``--test`` of the run on both ranks, the
+    videos split between them (``_finetune_cli``)."""
+    cli = [res["cli"] for res in runs["port"][2]]
+    # rank 0 alone prints
+    assert not any(cli[1][k] for k in ("train", "resume", "test"))
+    out = cli[0]
+    assert "devices: {'data': 2, 'model': 1}" in out["train"]
+    lines = [ln for ln in out["train"].splitlines()
+             if ln.startswith("[epoch 0] 2 ")]
+    assert len(lines) == 1 and "val loss" in lines[0], out["train"]
+    assert "resumed epoch 1" in out["resume"]
+    resumed = out["resume"].splitlines()
+    assert [ln for ln in resumed if ln.startswith("epoch ")] \
+        == [ln for ln in resumed if ln.startswith("epoch 1: train")]
+    run = Path(out["run"])
+    # the manager keeps the newest epoch and the best one
+    saved = sorted(p.name for p in (run / "model").iterdir())
+    assert saved[0] == "epoch2.pth.tar" and len(saved) == 2, saved
+    assert saved[1] in ("model_best_epoch1.pth.tar",
+                        "model_best_epoch2.pth.tar"), saved
+    assert (run / "train_log.md").read_text().count("val top1") == 2
+    test = out["test"]
+    assert "loaded test checkpoint" in test
+    assert "95 windows / 5 videos" in test and "over 2 ranks" in test
+    loss = float(test.split("[test] loss ")[1].split(";")[0])
+    assert math.isfinite(loss)
+    (log,) = Path(out["test_dir"]).glob("*/test_log.md")
+    assert f"loss: {loss:.4f}" in log.read_text()
+    mat = np.loadtxt(log.parent / "confusion_matrix.txt", dtype=np.int64)
+    assert mat.shape == (8, 8) and int(mat.sum()) == 5

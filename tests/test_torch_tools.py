@@ -54,6 +54,7 @@ from dpc_tpu_torch.train import (bench_breakdown, bench_input, bench_loop,
 from dpc_tpu_torch.utils import profiling
 from dpc_tpu_torch.utils.weights import (dpc_state_dict_from_jax,
                                          lc_state_dict_from_jax)
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 TINY = ["--device", "cpu", "--img_dim", "32", "--batch_size", "2",
@@ -64,15 +65,6 @@ CLI = ["--device", "cpu", "--dataset", "synthetic", "--img_dim", "32",
        "--epochs", "1", "--steps_per_epoch", "2", "--num_workers", "2",
        "--compute_dtype", "float32", "--print_freq", "1",
        "--synthetic_videos", "4"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Tier-1 runs six test workers on a few cores: one torch thread each."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def _np_tree(tree):

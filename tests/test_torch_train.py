@@ -34,12 +34,32 @@ from dpc_tpu_torch.models import dpc
 from dpc_tpu_torch.ops import _build
 from dpc_tpu_torch.train import evaluate, optim, pretrain, pretrain_step
 from dpc_tpu_torch.utils.weights import dpc_state_dict_from_jax
+from torch_threads import one_thread  # noqa: F401
 
 SHAPE = dict(img_dim=32, num_seq=3, seq_len=4, pred_step=1, gru_dropout=0.0)
 B, LR, WD = 4, 1e-3, 1e-5
 
 
-def test_one_train_step_matches_jax():
+@pytest.fixture(scope="module")
+def jax_pretrain():
+    """``(mesh, start(params) -> state, step)``: dpc_tpu's pretrain step on
+    a one-device mesh, traced and compiled once for the module's tests."""
+    mesh = meshlib.make_mesh(1)
+    jcfg = JaxDPCConfig(**SHAPE)
+    tx = jax_optim.pretrain_optimizer(
+        jax_dpc.init_dpc(jax.random.PRNGKey(0), jcfg), LR, WD)
+
+    def start(jparams):
+        return meshlib.replicate(mesh, jax_step.TrainState(
+            jparams, tx.init(jparams), jnp.zeros((), jnp.int32)))
+
+    jstep = jax_step.make_pretrain_step(
+        jcfg, JaxTrainConfig(batch_size=B, lr=LR, wd=WD, negatives="local"),
+        mesh, tx)
+    return mesh, start, jstep
+
+
+def test_one_train_step_matches_jax(jax_pretrain):
     jcfg = JaxDPCConfig(**SHAPE)
     jparams = jax_dpc.init_dpc(jax.random.PRNGKey(0), jcfg)
     x = np.random.default_rng(0).normal(
@@ -49,12 +69,8 @@ def test_one_train_step_matches_jax():
     before = dpc_state_dict_from_jax(jax.tree.map(np.asarray, jparams))
     model.load_state_dict(before, strict=True)
 
-    mesh = meshlib.make_mesh(1)
-    jtcfg = JaxTrainConfig(batch_size=B, lr=LR, wd=WD, negatives="local")
-    tx = jax_optim.pretrain_optimizer(jparams, LR, WD)
-    state = meshlib.replicate(mesh, jax_step.TrainState(
-        jparams, tx.init(jparams), jnp.zeros((), jnp.int32)))
-    jstep = jax_step.make_pretrain_step(jcfg, jtcfg, mesh, tx)
+    mesh, start, jstep = jax_pretrain
+    state = start(jparams)
     state, jm = jstep(state, meshlib.shard_batch(mesh, jnp.asarray(x)),
                       jax.random.PRNGKey(1))
     jafter = dpc_state_dict_from_jax(jax.tree.map(np.asarray, state.params))
@@ -114,7 +130,7 @@ def test_cli_runs_two_steps_on_cpu(tmp_path, capsys):
                        "--num_devices", "2", "--model_parallel", "2"])
 
 
-def test_pretrain_loss_envelope_over_three_steps():
+def test_pretrain_loss_envelope_over_three_steps(jax_pretrain):
     """Three f32 steps of the port against dpc_tpu's make_pretrain_step,
     same weights and batches, dropout off.  Envelope, in the manner of
     tests/test_train_parity.py: the first loss to 1e-4 relative (one
@@ -126,13 +142,8 @@ def test_pretrain_loss_envelope_over_three_steps():
     model.load_state_dict(
         dpc_state_dict_from_jax(jax.tree.map(np.asarray, jparams)),
         strict=True)
-    mesh = meshlib.make_mesh(1)
-    tx = jax_optim.pretrain_optimizer(jparams, LR, WD)
-    state = meshlib.replicate(mesh, jax_step.TrainState(
-        jparams, tx.init(jparams), jnp.zeros((), jnp.int32)))
-    jstep = jax_step.make_pretrain_step(
-        jcfg, JaxTrainConfig(batch_size=B, lr=LR, wd=WD, negatives="local"),
-        mesh, tx)
+    mesh, start, jstep = jax_pretrain
+    state = start(jparams)
     step = pretrain_step.make_pretrain_step(
         DPCConfig(**SHAPE, gru_impl="pallas"),
         TrainConfig(batch_size=B, lr=LR, wd=WD, nce_impl="fused"), model,
@@ -176,15 +187,3 @@ def test_finetune_cli_trains_validates_and_tests_on_cpu(tmp_path, capsys):
     # 256-frame videos at ds 3 are 21 blocks of 4: 19 windows of 3 blocks
     assert "38 windows / 2 videos" in out
     assert list(tmp_path.glob("*/confusion_matrix.txt"))
-
-
-@pytest.mark.parametrize("flag", [
-    ["--model_parallel", "4", "--test", "random"], ["--model_parallel", "2"],
-    ["--num_devices", "2", "--test", "random"], ["--num_devices", "4"],
-    ["--multihost", "--test", "random"], ["--multihost", "--device_augment"],
-    ["--model_parallel", "2", "--five_crop"], ["--num_devices", "2"],
-    ["--multihost"]])
-def test_finetune_cli_rejects_unported_flags(tmp_path, flag):
-    args = ["--dataset", "synthetic", *flag]
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        _finetune_cli(tmp_path, *args)

@@ -16,6 +16,7 @@ from dpc_tpu_torch.core.config import DPCConfig
 from dpc_tpu_torch.models import dpc, lc
 from dpc_tpu_torch.utils.weights import (dpc_state_dict_from_jax,
                                          lc_state_dict_from_jax)
+from torch_threads import one_thread  # noqa: F401
 
 
 def _jax_tree(network):
