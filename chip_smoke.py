@@ -8,23 +8,31 @@ the CLIs, and the bench, profiling and debug tools.
 Phases, each printing its facts before the next starts:
   1. build    compile csrc/*.cu for sm_90a (one nvcc per source, in
               parallel); count the tensor-core instructions (HGMMA, HMMA)
-              in the SASS of the nce and convgru libraries
+              in the SASS of the nce and convgru libraries, and the TMA
+              loads (UTMALDG) and 128-bit stores of K8's vector path
   2. kernels  K-GRU-F/B, K-NCE-F/B and the stem pool's K1/K2/K8 against
               their plain versions on the card, at the pretrain and LC
               shapes, the 6144-row NCE shape, R50's D=1024, a D that is
               not a multiple of 32, ragged shapes, a rank's tile of
               {data:2} global negatives (1536x3072), data with exact ties and
               data with NaNs (K1 propagates them as dpc_tpu's kernel and
-              ATen do), with f32
+              ATen do, K8 routes nothing from a window that holds one), K8
+              and its ReLU-gated variant also at a C of 20 (bf16: the
+              scalar path; f32: 80-byte pixels) and on data off 16-byte
+              alignment (the scalar path), with f32
               matmul and cuDNN TF32 off; values and grads; the stem
               activation's layout as the backbone makes it
-  3. step     a small f32 step through the kernels against the same step
+  3. step     a small f32 step through the kernels, and through the kernels
+              with the eqroute stem (K1, gated K8), against the same step
               through the plain paths; then the pretrain flagship R18-128,
               B=64, bf16 train step (gru_impl="pallas", nce_impl="fused",
               stem pool "auto"): 2 warm-up and 10 timed steps, with the
               kernels' launch counts read around the timed steps; then
               the same step with nce_impl="xla", and with gru_impl="scan"
-              (the per-step plain recurrence), in turns with it
+              (the per-step plain recurrence), in turns with it; then the
+              step with the eqroute stem (K8 must launch once a step, K2
+              never): its peak memory and clips/s in turns with the
+              default stem
   4. lc       the same check for one small f32 LC finetune step; then the
               LC flagship R18-128, 8x5, B=32, bf16, 101 classes: 2 warm-up
               and 10 timed finetune steps with the launch counts read
@@ -224,16 +232,33 @@ def _cuobjdump() -> str:
                  "and convgru libraries use the tensor cores")
 
 
-def tensor_core_instructions(name: str) -> dict:
-    """Counts of HGMMA (wgmma) and HMMA (mma.sync) in the SASS of library
-    ``name``."""
+def _sass(name: str) -> str:
     from dpc_tpu_torch.ops import _build
 
     sass = subprocess.run([_cuobjdump(), "-sass", str(_build.lib_path(name))],
                           capture_output=True, text=True, timeout=300)
     expect(sass.returncode == 0, f"cuobjdump failed: {sass.stderr}")
-    return {op: len(re.findall(rf"\b{op}\b", sass.stdout))
-            for op in ("HGMMA", "HMMA")}
+    return sass.stdout
+
+
+def tensor_core_instructions(name: str) -> dict:
+    """Counts of HGMMA (wgmma) and HMMA (mma.sync) in the SASS of library
+    ``name``."""
+    sass = _sass(name)
+    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "HMMA")}
+
+
+def k8_instructions() -> dict:
+    """Counts in the SASS of K8's vector path (the four pool_bwd_eq_tma
+    instances of the maxpool library): TMA loads (UTMALDG), 128-bit
+    global stores and 128-bit shared-memory loads."""
+    funcs = [f for f in re.split(r"\n\s*Function : ", _sass("maxpool"))
+             if "pool_bwd_eq_tma" in f.split("\n", 1)[0]]
+    body = "\n".join(funcs)
+    return {"functions": len(funcs),
+            "UTMALDG": len(re.findall(r"\bUTMALDG\b", body)),
+            "STG.128": len(re.findall(r"\bSTG\.E(?:\.\w+)*\.128\b", body)),
+            "LDS.128": len(re.findall(r"\bLDS(?:\.\w+)*\.128\b", body))}
 
 
 def phase_build() -> None:
@@ -254,6 +279,10 @@ def phase_build() -> None:
         log(f"[build] {name} SASS tensor-core instructions: {tc}")
         expect(tc["HGMMA"] + tc["HMMA"] > 0,
                f"the {name} library holds no tensor-core instruction")
+    k8 = k8_instructions()
+    log(f"[build] maxpool SASS of K8's vector path: {k8}")
+    expect(k8["functions"] == 4 and k8["UTMALDG"] > 0 and k8["STG.128"] > 0,
+           "K8's vector path issues no TMA load or no 128-bit store")
 
 
 # ---------------------------------------------------------------------------
@@ -517,14 +546,19 @@ def check_pool(shape, dtype, ties: bool, timed: bool) -> dict:
     dz_p = P.maxpool_relu_bwd_plain(gout, code_p)
     eq_k = P.maxpool_bwd_eq(z, gout)
     eq_p = P.maxpool_bwd_eq_plain(z, gout)
+    eqr_k = P.maxpool_bwd_eq(z, gout, relu=True)
+    eqr_p = P.maxpool_bwd_eq_plain(z, gout, relu=True)
     torch.cuda.synchronize()
     res = {"fwd": {"err": 0.0},
            "bwd": {"err": _grad_err("K2", dz_k, dz_p, dtype)},
-           "eq": {"err": _grad_err("K8", eq_k, eq_p, dtype)}}
+           "eq": {"err": _grad_err("K8", eq_k, eq_p, dtype)},
+           "eq_relu": {"err": _grad_err("K8 relu", eqr_k, eqr_p, dtype)}}
+    del eq_p, eqr_p
     name = (f"pool {list(shape)} {str(dtype).split('.')[-1]}"
             + (" ties" if ties else ""))
     facts = [f"K1 bit-equal ({int((code_k == P.DEAD).sum())} dead codes)",
-             f"K2 err {res['bwd']['err']:.2e}", f"K8 err {res['eq']['err']:.2e}"]
+             f"K2 err {res['bwd']['err']:.2e}", f"K8 err {res['eq']['err']:.2e}",
+             f"K8 relu err {res['eq_relu']['err']:.2e}"]
     if z.numel() <= 2 ** 24:
         # first-max routing against ATen, in f32 on the same values (at a
         # size where normal f32 draws hold no tied window maxima)
@@ -535,6 +569,7 @@ def check_pool(shape, dtype, ties: bool, timed: bool) -> dict:
             # the gradient and ATen only the first
             _grad_err("K8 vs ATen", eq_k, _aten_pool(z.float(), False,
                                                      gout.float()), dtype)
+            _grad_err("K8 relu vs ATen", eqr_k, dz_aten, dtype)
         facts.append("K2 routes as ATen")
     if ties:
         # every tied max: K8 sends gradient where ATen's pool (no ReLU)
@@ -565,13 +600,21 @@ def check_pool(shape, dtype, ties: bool, timed: bool) -> dict:
                     g5, zr, [1, 3, 3], [1, 2, 2], [0, 1, 1], [1, 1, 1], False,
                     idx)),
             bound=bound_ms(no + nc + nz, 4 * z.numel()))
-        res["eq"].update(
-            ms=cuda_ms(lambda: P.maxpool_bwd_eq(z, gout)),
-            plain_ms=cuda_ms(lambda: P.maxpool_bwd_eq_plain(z, gout)),
-            library_ms=None,
-            bound=bound_ms(nz + no + nz, 9 * 2 * z.numel()))
+        for key, relu in (("eq", False), ("eq_relu", True)):
+            res[key].update(
+                ms=cuda_ms(lambda: P.maxpool_bwd_eq(z, gout, relu)),
+                plain_ms=cuda_ms(lambda: P.maxpool_bwd_eq_plain(z, gout, relu)),
+                library_ms=None,
+                bound=bound_ms(nz + no + nz, 9 * 2 * z.numel()))
         del zr, idx
-        for k, label in (("fwd", "K1"), ("bwd", "K2"), ("eq", "K8")):
+        # a yardstick for the byte-bound kernels: a copy of z on this card
+        dst = torch.empty_like(z)
+        copy_ms = cuda_ms(lambda: dst.copy_(z))
+        del dst
+        log(f"[kernels] {name}: a copy of z {copy_ms:.3f} ms, "
+            f"{2 * nz / copy_ms / 1e9:.3f} TB/s")
+        for k, label in (("fwd", "K1"), ("bwd", "K2"), ("eq", "K8"),
+                         ("eq_relu", "K8 relu")):
             t = res[k]
             lib = ("none" if t["library_ms"] is None
                    else f"{t['library_ms']:.3f}")
@@ -581,11 +624,34 @@ def check_pool(shape, dtype, ties: bool, timed: bool) -> dict:
     return res
 
 
+def check_eq(shape, dtype, ties: bool, misaligned: bool = False) -> None:
+    """K8 and its ReLU-gated variant against their plain versions where K1
+    and K2 do not run: a C whose pixel is not whole 16-byte vectors (the
+    scalar path), or src 2 or 4 bytes off 16-byte alignment (the scalar
+    path at any C)."""
+    import torch
+    from dpc_tpu_torch.ops import maxpool_cuda as P
+
+    z, gout = _pool_input(shape, dtype, ties, seed=sum(shape) + 1)
+    if misaligned:
+        buf = torch.empty(z.numel() + 1, dtype=dtype, device=z.device)
+        z = buf[1:].view(z.shape).copy_(z)
+    errs = [_grad_err(f"K8{' relu' if relu else ''} at {list(shape)}",
+                      P.maxpool_bwd_eq(z, gout, relu),
+                      P.maxpool_bwd_eq_plain(z, gout, relu), dtype)
+            for relu in (False, True)]
+    log(f"[kernels] K8 {list(shape)} {str(dtype).split('.')[-1]}"
+        f"{' ties' if ties else ''}{' misaligned' if misaligned else ''}: "
+        f"err {errs[0]:.2e}, relu err {errs[1]:.2e}")
+
+
 def check_pool_nan(dtype) -> None:
-    """K1 and K2 on data with NaNs: K1 gives NaN exactly where its plain
+    """K1, K2 and K8 on data with NaNs: K1 gives NaN exactly where its plain
     version (``dpc_tpu``'s kernel, whose max propagates NaN) and ATen's
-    relu-then-pool do, equal values and codes elsewhere, and K2 routes as
-    its plain version does."""
+    relu-then-pool do, equal values and codes elsewhere, K2 routes as its
+    plain version does, and K8 (and its gated variant) routes nothing from
+    a window that holds a NaN, as its plain version and ``dpc_tpu``'s
+    kernel do."""
     import torch
     from dpc_tpu_torch.ops import maxpool_cuda as P
 
@@ -607,6 +673,16 @@ def check_pool_nan(dtype) -> None:
            "K1 does not propagate NaN as its plain version and ATen do")
     _grad_err("K2 on NaN data", P.maxpool_relu_bwd(gout, code_k),
               P.maxpool_relu_bwd_plain(gout, code_p), dtype)
+    for relu in (False, True):
+        _grad_err(f"K8{' relu' if relu else ''} on NaN data",
+                  P.maxpool_bwd_eq(z, gout, relu),
+                  P.maxpool_bwd_eq_plain(z, gout, relu), dtype)
+    # what a NaN-ignoring window max (F9) would have routed instead
+    ignoring = P.maxpool_bwd_eq_plain(z.nan_to_num(nan=-1e30), gout)
+    moved = int((ignoring != P.maxpool_bwd_eq_plain(z, gout)).sum())
+    log(f"[kernels] K8 on NaN data equals its plain version; a NaN-ignoring "
+        f"max would change {moved} elements of dz")
+    expect(moved > 0, "the NaN data does not tell K8's NaN routing apart")
 
 
 def probe_stem_layout() -> None:
@@ -655,14 +731,7 @@ def phase_kernels(profile: str | None = None) -> dict:
         check_nce(640, 640, 200, 3, timed=False)       # D % 32 != 0
         check_nce(1000, 1500, 256, 37, timed=False)    # ragged
         check_nce(1536, 3072, 256, 0, timed=True)      # {data:2} global rank
-        pool = check_pool((1280, 64, 64, 64), bf16, False, timed=True)  # LC
-        for dt in (bf16, f32):                         # pretrain
-            check_pool((2560, 64, 64, 64), dt, False, timed=True)
-        check_pool((1280, 64, 64, 64), f32, False, timed=False)
-        for dt in (bf16, f32):
-            check_pool((37, 18, 22, 64), dt, False, timed=False)  # ragged
-            check_pool((64, 64, 64, 64), dt, True, timed=False)   # ties
-            check_pool_nan(dt)
+        pool = check_pool_kernels()
         probe_stem_layout()
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -670,17 +739,40 @@ def phase_kernels(profile: str | None = None) -> dict:
     return {"gru_lc": gru_lc, "nce": nce, "pool": pool}
 
 
+def check_pool_kernels() -> dict:
+    """The stem pool's K1, K2 and K8 (and its gated variant): timed at the
+    LC and pretrain shapes, then ragged, tie, NaN, C = 20 and misaligned
+    data.  Returns the LC bf16 shape's results."""
+    import torch
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    pool = check_pool((1280, 64, 64, 64), bf16, False, timed=True)  # LC
+    for dt in (bf16, f32):                             # pretrain
+        check_pool((2560, 64, 64, 64), dt, False, timed=True)
+    check_pool((1280, 64, 64, 64), f32, False, timed=False)
+    for dt in (bf16, f32):
+        check_pool((37, 18, 22, 64), dt, False, timed=False)  # ragged
+        check_pool((64, 64, 64, 64), dt, True, timed=False)   # ties
+        check_pool_nan(dt)
+        for ties in (False, True):                    # C = 20: 40 / 80 bytes
+            check_eq((8, 16, 16, 20), dt, ties)
+        check_eq((37, 18, 22, 64), dt, True, misaligned=True)
+    return pool
+
+
 # ---------------------------------------------------------------------------
 # 3. the train step
 # ---------------------------------------------------------------------------
 
 def _small_step_check() -> None:
-    """One f32 step at a small size through the kernels and through the
-    plain paths (scan GRU, materialised score, ATen stem pool), same weights
-    and batch: the losses must agree."""
+    """One f32 step at a small size through the kernels, through the
+    kernels with the eqroute stem (K1 and the gated K8), and through the
+    plain paths (scan GRU, materialised score, ATen stem pool), same
+    weights and batch: the losses must agree."""
     import torch
     from dpc_tpu_torch.core.config import DPCConfig, TrainConfig
     from dpc_tpu_torch.models import dpc
+    from dpc_tpu_torch.ops import _build
     from dpc_tpu_torch.train import optim, pretrain_step
 
     dev = torch.device("cuda")
@@ -689,8 +781,10 @@ def _small_step_check() -> None:
         x = torch.randn(4, 4, 5, 64, 64, 3, device=dev,
                         generator=torch.Generator(device=dev).manual_seed(3))
         losses = {}
-        for gru_impl, nce_impl, stem in (("pallas", "fused", "pallas"),
-                                         ("scan", "xla", "xla")):
+        for name, gru_impl, nce_impl, stem in (
+                ("kernel", "pallas", "fused", "pallas"),
+                ("eqroute", "pallas", "fused", "eqroute"),
+                ("plain", "scan", "xla", "xla")):
             cfg = DPCConfig(img_dim=64, num_seq=4, seq_len=5, pred_step=2,
                             gru_impl=gru_impl, gru_dropout=0.0)
             model = dpc.build_dpc(cfg, dev, seed=0)
@@ -698,11 +792,20 @@ def _small_step_check() -> None:
             tcfg = TrainConfig(batch_size=4, nce_impl=nce_impl)
             step = pretrain_step.make_pretrain_step(
                 cfg, tcfg, model, optim.pretrain_optimizer(model, 1e-3, 1e-5))
-            losses[gru_impl] = float(step(x)["loss"])
-        err = abs(losses["pallas"] - losses["scan"]) / abs(losses["scan"])
-        log(f"[step] small f32 check: kernel path loss {losses['pallas']}, "
-            f"plain path {losses['scan']}, rel diff {err:.2e}")
-        expect(err <= 1e-4, f"kernel path and plain path disagree: {losses}")
+            _build.reset_launches()
+            losses[name] = float(step(x)["loss"])
+            if name == "eqroute":
+                expect(_build.LAUNCHES["maxpool_bwd_eq"] == 1
+                       and _build.LAUNCHES["maxpool_relu_bwd"] == 0,
+                       f"the eqroute step did not run K8: {_build.LAUNCHES}")
+        errs = {k: abs(losses[k] - losses["plain"]) / abs(losses["plain"])
+                for k in ("kernel", "eqroute")}
+        log(f"[step] small f32 check: kernel path loss {losses['kernel']}, "
+            f"eqroute stem {losses['eqroute']}, plain path "
+            f"{losses['plain']}, rel diff {errs['kernel']:.2e} / "
+            f"{errs['eqroute']:.2e}")
+        expect(max(errs.values()) <= 1e-4,
+               f"kernel paths and plain path disagree: {losses}")
     finally:
         torch.backends.cudnn.allow_tf32 = True
 
@@ -798,8 +901,56 @@ def phase_step(profile: str | None) -> dict:
     expect(all(math.isfinite(v) for v in losses), f"non-finite loss {losses}")
     _profile(lambda: step(x, gen), profile, "pretrain R18-128 B=64 bf16")
     _compare_paths(cfg, tcfg, model, step, x, gen)
-    return {"launches": launches, "clips_per_s": n_steps * batch / dt,
+    eq_launches = _eqroute_step(model, step, x, gen)
+    return {"launches": launches, "eq_launches": eq_launches,
+            "clips_per_s": n_steps * batch / dt,
             "ms_per_step": 1e3 * dt / n_steps}
+
+
+def _eqroute_step(model, step, x, gen, n_steps: int = 5) -> dict:
+    """The flagship step with the eqroute stem (K1 forward, K8 gated by
+    z > 0 backward, z saved): K1 and K8 once a step and K2 never, finite
+    losses, its peak memory and clips/s in turns with the default stem.
+    Returns its launch counts."""
+    import torch
+    from dpc_tpu_torch.ops import _build
+
+    bb, batch = model.backbone, x.shape[0]
+
+    def run(impl):
+        bb.stem_pool_impl = impl
+        return step(x, gen)
+
+    try:
+        peak = {}
+        for impl in ("auto", "eqroute"):
+            run(impl)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            run(impl)
+            torch.cuda.synchronize()
+            peak[impl] = torch.cuda.max_memory_allocated() / 2**30
+        _build.reset_launches()
+        metrics = [run("eqroute") for _ in range(n_steps)]
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        losses = [float(m["loss"]) for m in metrics]
+        log(f"[step] eqroute stem: launches over {n_steps} steps {launches}; "
+            f"losses {losses}")
+        expect(launches["maxpool_bwd_eq"] == n_steps
+               and launches["maxpool_relu_fwd"] == n_steps
+               and launches["maxpool_relu_bwd"] == 0,
+               f"the eqroute step did not launch K1 and K8 once a step and "
+               f"K2 never: {launches}")
+        expect(all(math.isfinite(v) for v in losses),
+               f"non-finite eqroute loss {losses}")
+        rates = _in_turns(lambda: run("auto"), lambda: run("eqroute"), batch)
+    finally:
+        bb.stem_pool_impl = "auto"
+    log(f"[step] stem in turns: default (K1/K2) {rates['plain']} clips/s, "
+        f"eqroute (K1/K8) {rates['kernel']} clips/s; peak "
+        f"{peak['auto']:.2f} / {peak['eqroute']:.2f} GiB")
+    return launches
 
 
 def _in_turns(plain, kernel, batch: int, n: int = 5) -> dict:
@@ -2595,8 +2746,9 @@ def nccl_ranks(n: int) -> dict:
 
 def kernels_line(k: dict, launches: dict) -> dict:
     """The per-kernel JSON record: K3-K4 and the pool kernels at the LC
-    flagship shapes with the LC path's launches, K5-K6 at the pretrain
-    shapes with the pretrain path's launches."""
+    flagship shapes with the LC path's launches (K8 with the eqroute
+    pretrain step's), K5-K6 at the pretrain shapes with the pretrain
+    path's launches, K7 with the model axis's."""
     def row(name, src, replaces, t, err, n):
         return {"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": n, "max_abs_err": err,
@@ -2605,8 +2757,8 @@ def kernels_line(k: dict, launches: dict) -> dict:
                 "library_ms": t["library_ms"]}
 
     g, n, p, k7 = k["gru_lc"], k["nce"], k["pool"], k["k7"]
-    lc_n, pre_n, mp_n = (launches["lc"], launches["pretrain"],
-                         launches["model_axis"])
+    lc_n, pre_n, mp_n, eq_n = (launches["lc"], launches["pretrain"],
+                               launches["model_axis"], launches["eqroute"])
     gru_src, nce_src = ("dpc_tpu_torch/csrc/convgru.cu",
                         "dpc_tpu_torch/csrc/nce.cu")
     pool_src, pool_tpu = ("dpc_tpu_torch/csrc/maxpool.cu",
@@ -2625,7 +2777,7 @@ def kernels_line(k: dict, launches: dict) -> dict:
         row("maxpool_relu_bwd", pool_src, f"{pool_tpu}:208", p["bwd"],
             p["bwd"]["err"], lc_n["maxpool_relu_bwd"]),
         row("maxpool_bwd_eq", pool_src, f"{pool_tpu}:303", p["eq"],
-            p["eq"]["err"], lc_n["maxpool_bwd_eq"]),
+            p["eq"]["err"], eq_n["maxpool_bwd_eq"]),
         row("nce_fwd_shard", nce_src, "dpc_tpu/ops/nce_pallas.py:351",
             k7["fwd"], k7["fwd_err"], mp_n["nce_fwd_shard"]),
         row("nce_bwd_shard", nce_src, "dpc_tpu/ops/nce_pallas.py:380",
@@ -2789,7 +2941,7 @@ def main(argv=None) -> int:
     print(json.dumps(kernels_line(
         {**k, "k7": ranks["k7"]},
         {"pretrain": s["launches"], "lc": lc["launches"],
-         "model_axis": ranks["launches"]})))
+         "model_axis": ranks["launches"], "eqroute": s["eq_launches"]})))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)

@@ -12,12 +12,15 @@
 // product A·Bᵀ reads both A [M, K] and B [N, K] with K contiguous.  The
 // tensor cores truncate as they accumulate, so every 32-wide K chunk starts
 // a fresh accumulator and the chunks are added in f32 on the CUDA cores.
+// The mbarrier and TMA pieces are in tma.cuh.
 #pragma once
 
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "tma.cuh"
 
 namespace {
 
@@ -27,46 +30,10 @@ constexpr int BOX_BYTES = BM * BK * 4;  // one 64 x 32 f32 TMA box
 
 // ---------------------------------------------------------------- device
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 __device__ __forceinline__ float tf32_rna(float x) {
   uint32_t u;
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(u) : "f"(x));
   return __uint_as_float(u);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One box of a 2-D f32 plane at (x = column, y = row).
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int x, int y,
-                                         uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3}], [%4];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(bar)
-      : "memory");
 }
 
 // wgmma descriptor of a K-major tile with 128-byte swizzle: rows of 128
@@ -255,26 +222,6 @@ __device__ __forceinline__ Ring<kStages, kStageBytes> make_ring(uint8_t* dyn, ui
 
 // ------------------------------------------------------------------ host
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled lives in libcuda; it is fetched through the
-// runtime's entry-point query so that the library needs no link against it.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult res;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res) ==
-            cudaSuccess &&
-        res == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // Map of a row-major f32 plane [outer, inner] with leading dimension ld,
 // loaded in boxes of box_rows rows x 32 columns with 128-byte swizzle;
 // reads past inner or outer return zeros.
@@ -289,13 +236,6 @@ bool make_map(CUtensorMap* map, const float* base, int inner, int outer, int ld,
             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-int sm_count() {
-  int dev = 0, n = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  return n > 0 ? n : 1;
 }
 
 inline int round_up(int x, int m) { return (x + m - 1) / m * m; }

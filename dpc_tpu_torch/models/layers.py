@@ -176,30 +176,35 @@ def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
 
 def relu_maxpool_stem(x: torch.Tensor, impl: str = "auto") -> torch.Tensor:
     """The stem's ReLU → 3×3/s2/p1 max-pool over (H, W) of NCDHW ``x``
-    (reference ``backbone/resnet_2d3d.py:214``).  Ties route the gradient
-    to the first max, as in the reference.
+    (reference ``backbone/resnet_2d3d.py:214``).
 
     ``impl`` (the switch of ``dpc_tpu``'s ``relu_maxpool_stem``):
-      * "xla": ``F.max_pool3d(F.relu(x))``;
-      * "pallas": the CUDA kernels K1/K2 (``ops/maxpool_cuda.py``), which
-        take the channels-last-3d activation the backbone makes on the card
-        (anything else raises); the name is kept for switch parity;
+      * "xla": ``F.max_pool3d(F.relu(x))``; ties route the gradient to the
+        first max, as in the reference;
+      * "sas": the same call.  ``dpc_tpu``'s "sas" is XLA's
+        SelectAndScatter, first-max routing gated by x > 0, which is what
+        ATen's max-pool autograd after the ReLU computes;
+      * "pallas": the CUDA kernels K1/K2 (``ops/maxpool_cuda.py``), first-max
+        routing; the name is kept for switch parity;
+      * "eqroute" (even H and W): K1's forward and K8's equality-routed
+        backward gated by x > 0 (``maxpool_cuda.relu_maxpool_3x3s2_eq``),
+        which gives every tied maximum the window's gradient and saves x;
       * "auto": "pallas" for a CUDA tensor, "xla" for a CPU tensor.
-    "sas" and "eqroute" are XLA's own and are not ported.
+    "pallas" and "eqroute" take the channels-last-3d activation the backbone
+    makes on the card (anything else raises); a CPU tensor runs the
+    kernels' plain versions.
     """
     if impl == "auto":
         impl = "pallas" if x.is_cuda else "xla"
-    if impl == "xla":
+    if impl in ("xla", "sas"):
         return F.max_pool3d(F.relu(x), (1, 3, 3), (1, 2, 2), (0, 1, 1))
-    if impl == "pallas":
+    if impl in ("pallas", "eqroute"):
         if x.is_cuda and not x.is_contiguous(
                 memory_format=torch.channels_last_3d):
             raise ValueError(f"the stem pool kernel takes a channels_last_3d "
                              f"activation; got strides {x.stride()}")
-        y = maxpool_cuda.relu_maxpool_3x3s2(x.permute(0, 2, 3, 4, 1))
-        return y.permute(0, 4, 1, 2, 3)
-    if impl in ("sas", "eqroute"):
-        raise NotImplementedError(f"stem pool impl {impl!r} is XLA-specific "
-                                  "and not ported to dpc_tpu_torch")
+        pool = (maxpool_cuda.relu_maxpool_3x3s2 if impl == "pallas"
+                else maxpool_cuda.relu_maxpool_3x3s2_eq)
+        return pool(x.permute(0, 2, 3, 4, 1)).permute(0, 4, 1, 2, 3)
     raise ValueError(f"unknown stem pool impl {impl!r} "
-                     "(expected auto | xla | pallas)")
+                     "(expected auto | xla | sas | pallas | eqroute)")

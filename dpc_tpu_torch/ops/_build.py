@@ -115,9 +115,9 @@ _SIGS = {
             "nce_bwd": 7 * ["p"] + ["l"] + 3 * ["i"] + ["p"],
             "nce_fwd_scratch_floats": 3 * ["i"],
             "nce_bwd_scratch_floats": 3 * ["i"]},
-    "maxpool": {fn: 3 * ["p"] + ["l"] + 4 * ["i"] + ["p"]
-                for fn in ("maxpool_relu_fwd", "maxpool_relu_bwd",
-                           "maxpool_bwd_eq")},
+    "maxpool": {"maxpool_relu_fwd": 3 * ["p"] + ["l"] + 4 * ["i"] + ["p"],
+                "maxpool_relu_bwd": 3 * ["p"] + ["l"] + 4 * ["i"] + ["p"],
+                "maxpool_bwd_eq": 3 * ["p"] + ["l"] + 5 * ["i"] + ["p"]},
 }
 # entry points that return something other than a CUDA error code
 _RESTYPES = {fn: "l" for fn in ("nce_fwd_scratch_floats", "nce_bwd_scratch_floats",

@@ -17,6 +17,8 @@ even).  The public functions keep the JAX package's NDHWC layout:
   JAX forward is XLA's ``reduce_window``, outside any kernel) and K8's
   equality-routed backward, which gives every tied maximum the window's
   gradient.
+* ``relu_maxpool_3x3s2_eq(z)``: ``relu(maxpool(z))`` through K1 forward and
+  K8 gated by z > 0 backward: the stem's ``eqroute`` pool.
 
 The code of an output element is the first maximal window slot ``k = 3·dh +
 dw`` (0-8), or 9 when the window max is ≤ 0 and the ReLU kills the
@@ -125,12 +127,18 @@ def _shift(x: torch.Tensor, dh: int, dw: int, fill: float) -> torch.Tensor:
     return _pad(x, fill)[:, 1 + dh:1 + dh + h, 1 + dw:1 + dw + w]
 
 
-def maxpool_bwd_eq_plain(src: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+def maxpool_bwd_eq_plain(src: torch.Tensor, g: torch.Tensor,
+                         relu: bool = False) -> torch.Tensor:
     """Equality-routed dz ``[M, H, W, C]`` of the max-pool of ``src`` for the
     output gradient ``g [M, H/2, W/2, C]``:
     ``dz[p] = Σ_δ G[p+δ]·[src[p] = M3[p+δ]]`` with G = g at the even window
     centres and M3 the stride-1 3×3 max of src, in f32 (the TPU kernel's
-    algorithm, ``maxpool_pallas.py:271-285``)."""
+    algorithm, ``maxpool_pallas.py:271-285``).  ``torch.maximum``
+    propagates NaN, so a window that holds a NaN routes nothing.  ``relu``:
+    dz of ``maxpool(relu(src))``: a window whose max is not positive routes
+    nothing (its M3 becomes NaN), so dz is the same sum where src > 0 and 0
+    elsewhere, and a NaN or inf in g still reaches its whole window, as in
+    ``dpc_tpu``'s eqroute backward (``layers._rmp_bwd``)."""
     _pool_shape(src.shape)
     s = src.float()
     gfull = torch.zeros_like(s)
@@ -140,6 +148,8 @@ def maxpool_bwd_eq_plain(src: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     m3 = s
     for dh, dw in shifts:
         m3 = torch.maximum(m3, _shift(s, dh, dw, float("-inf")))
+    if relu:
+        m3 = torch.where(m3 > 0, m3, torch.full_like(m3, float("nan")))
     acc = gfull * (s == m3).float()
     for dh, dw in shifts:
         eq = (s == _shift(m3, dh, dw, float("-inf"))).float()
@@ -182,11 +192,14 @@ def maxpool_relu_bwd(dout: torch.Tensor, code: torch.Tensor) -> torch.Tensor:
     return dz
 
 
-def maxpool_bwd_eq(src: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+def maxpool_bwd_eq(src: torch.Tensor, g: torch.Tensor,
+                   relu: bool = False) -> torch.Tensor:
     """K8.  src ``[M, H, W, C]`` and g ``[M, H/2, W/2, C]`` of one dtype →
-    dz ``[M, H, W, C]``."""
+    dz ``[M, H, W, C]``, gated by src > 0 with ``relu``.  Any C: the kernel
+    moves 16-byte vectors by TMA when a pixel's channels fill them, and
+    runs a scalar path otherwise."""
     if src.device.type == "cpu":
-        return maxpool_bwd_eq_plain(src, g)
+        return maxpool_bwd_eq_plain(src, g, relu)
     m, h, w, c = _pool_shape(src.shape)
     if g.shape != (m, h // 2, w // 2, c):
         raise ValueError(f"g has shape {tuple(g.shape)}, expected "
@@ -194,7 +207,7 @@ def maxpool_bwd_eq(src: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     bf16 = _check_cuda(src, g, vector=False)
     dz = torch.empty_like(src)
     _build.launch("maxpool", "maxpool_bwd_eq", src, g, dz, m, h, w, c,
-                  int(bf16))
+                  int(bf16), int(relu))
     return dz
 
 
@@ -224,6 +237,19 @@ class _MaxPoolEq(torch.autograd.Function):
         return maxpool_bwd_eq(z4, g.contiguous())
 
 
+class _ReluMaxPoolEq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, z4):
+        out, _ = maxpool_relu_fwd(z4)
+        ctx.save_for_backward(z4)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (z4,) = ctx.saved_tensors
+        return maxpool_bwd_eq(z4, g.contiguous(), relu=True)
+
+
 def _as_m_h_w_c(z: torch.Tensor) -> torch.Tensor:
     if z.ndim != 5:
         raise ValueError(f"expected NDHWC [N, T, H, W, C], got shape "
@@ -249,4 +275,15 @@ def maxpool_3x3s2_eq(z: torch.Tensor) -> torch.Tensor:
     ``maxpool_pallas.maxpool_3x3s2_eq``."""
     n, t, h, w, c = z.shape
     out = _MaxPoolEq.apply(_as_m_h_w_c(z))
+    return out.reshape(n, t, h // 2, w // 2, c)
+
+
+def relu_maxpool_3x3s2_eq(z: torch.Tensor) -> torch.Tensor:
+    """``relu(maxpool3d(z, (1,3,3), (1,2,2), (0,1,1)))`` over NDHWC (even H,
+    W) with the equality-routed backward: K1's forward (its code unused)
+    and K8 gated by z > 0, which saves z.  Every tied maximum gets the
+    window's gradient.  The counterpart of ``dpc_tpu``'s
+    ``relu_maxpool_stem(impl="eqroute")`` (``layers._relu_maxpool_eq``)."""
+    n, t, h, w, c = z.shape
+    out = _ReluMaxPoolEq.apply(_as_m_h_w_c(z))
     return out.reshape(n, t, h // 2, w // 2, c)
