@@ -10,8 +10,9 @@ Phases, each printing its facts before the next starts:
               parallel); count the tensor-core instructions (HGMMA, HMMA)
               in the SASS of the nce and convgru libraries, and the TMA
               loads (UTMALDG) and 128-bit stores of K8's vector path
-  2. kernels  K-GRU-F/B, K-NCE-F/B and the stem pool's K1/K2/K8 against
-              their plain versions on the card, at the pretrain and LC
+  2. kernels  K-GRU-F/B, K-NCE-F/B and the stem pool's K1 (and its
+              ReLU-off instance, the fused stem's pool; K2 through either's
+              codes)/K2/K8 against their plain versions on the card, at the pretrain and LC
               shapes, the 6144-row NCE shape, R50's D=1024, a D that is
               not a multiple of 32, ragged shapes, a rank's tile of
               {data:2} global negatives (1536x3072), data with exact ties and
@@ -23,22 +24,35 @@ Phases, each printing its facts before the next starts:
               matmul and cuDNN TF32 off; values and grads; the stem
               activation's layout as the backbone makes it
   3. step     a small f32 step through the kernels, and through the kernels
-              with the eqroute stem (K1, gated K8), against the same step
-              through the plain paths; then the pretrain flagship R18-128,
-              B=64, bf16 train step (gru_impl="pallas", nce_impl="fused",
-              stem pool "auto"): 2 warm-up and 10 timed steps, with the
-              kernels' launch counts read around the timed steps; then
-              the same step with nce_impl="xla", and with gru_impl="scan"
-              (the per-step plain recurrence), in turns with it; then the
-              step with the eqroute stem (K8 must launch once a step, K2
-              never): its peak memory and clips/s in turns with the
-              default stem
+              with the fused stem (the ReLU-off K1 and K2) and with the
+              eqroute stem (K1, gated K8), against the same step through
+              the plain paths; then the pretrain flagship R18-128, B=64,
+              bf16 train step (gru_impl="pallas", nce_impl="fused",
+              stem_impl and stem pool "auto"): 2 warm-up and 10 timed
+              steps, with the kernels' launch counts read around the timed
+              steps; then the same step with nce_impl="xla", and with
+              gru_impl="scan" (the per-step plain recurrence), in turns
+              with it; the step with stem_impl "unfused" and "fused" in
+              turns, each one's peak memory and launches (the fused stem:
+              the ReLU-off K1 and K2 once a step); then the step with the
+              eqroute stem (K8 must launch once a step, K2 never): its
+              peak memory and clips/s in turns with the K1/K2 pool; then
+              the NCE loss's forward and backward through K5/K6 and
+              through the materialised score in turns at R = C of 768 to
+              12288 rows, D 256 and 1024, and 1536x3072 (for
+              nce_impl="auto"); and what each "auto" switch resolves to
   4. lc       the same check for one small f32 LC finetune step; then the
               LC flagship R18-128, 8x5, B=32, bf16, 101 classes: 2 warm-up
               and 10 timed finetune steps with the launch counts read
               around them, the same step with gru_impl="scan" in turns
               with it, one eval step, and the dense-test forward at window
-              batch 32 in 5 windows of 10 forwards (best and spread)
+              batch 32 in 5 windows of 10 forwards (best and spread); the
+              finetune step, the eval step and the dense-test forward
+              each with stem_impl "unfused" and "fused" in turns (peak
+              memory, launches); then --fold_normalize off and on in
+              turns with --device_augment on uint8 windows: the pretrain
+              flagship step, the finetune step and the dense-test
+              forward (for fold_normalize="auto")
   5. cli      python -m dpc_tpu_torch.train.pretrain for 2 synthetic steps;
               python -m dpc_tpu_torch.train.evaluate for 1 epoch of 2 steps
               plus val, then --test random on a few synthetic videos
@@ -104,7 +118,9 @@ Phases, each printing its facts before the next starts:
               --num_devices 1 --negatives global --cross_replica_bn, both
               CLIs' refusal of --num_devices 2 on one card, and the
               finetune CLI with --num_devices 2 --device cpu (one epoch
-              of 2 steps and val)
+              of 2 steps and val); on both ranks, the fused stem in f32
+              with its statistics over the two ranks against the fused
+              stem on the whole batch (outputs, gradients, the EMA)
 Then one JSON line of per-kernel results, the card's name and power limit,
 and a last line {"ok": true, "device": {...}}.  Any failure exits non-zero
 before the last line.  Without a CUDA device it exits 2 and prints no result.
@@ -162,10 +178,14 @@ TOL_POOL_F32 = 1e-6  # max |kernel − plain| / max |plain| of the pool grads
                      # in f32: at most four terms summed, in the same order
 
 # the kernels each path must launch (names of _build.LAUNCHES)
-PRETRAIN_KERNELS = ("convgru_fwd", "convgru_bwd", "nce_fwd", "nce_bwd",
-                    "maxpool_relu_fwd", "maxpool_relu_bwd")
-LC_KERNELS = ("convgru_fwd", "convgru_bwd", "maxpool_relu_fwd",
-              "maxpool_relu_bwd")
+GRU_KERNELS = ("convgru_fwd", "convgru_bwd")
+NCE_KERNELS = ("nce_fwd", "nce_bwd")
+STEM_FUSED = ("maxpool_fwd", "maxpool_relu_bwd")        # ReLU-off K1, K2
+PRETRAIN_KERNELS = GRU_KERNELS + NCE_KERNELS + STEM_FUSED
+LC_KERNELS = GRU_KERNELS + STEM_FUSED
+SHARD_KERNELS = GRU_KERNELS + ("nce_fwd_shard", "nce_bwd_shard") + STEM_FUSED
+# the eval step's and the dense test's (no backward)
+EVAL_KERNELS = ("convgru_fwd", "maxpool_fwd")
 
 
 def log(msg: str) -> None:
@@ -529,9 +549,10 @@ def _grad_err(name, got, want, dtype) -> float:
 
 
 def check_pool(shape, dtype, ties: bool, timed: bool) -> dict:
-    """K1, K2 and K8 against their plain versions at z ``shape``; K1 bit
-    for bit.  On tie data K2 must route as ATen does (first max) and K8
-    must give every tied max the window's gradient."""
+    """K1, its ReLU-off instance, K2 (through either's codes) and K8
+    against their plain versions at z ``shape``; both K1 instances bit for
+    bit, values and codes.  On tie data K2 must route as ATen does (first
+    max) and K8 must give every tied max the window's gradient."""
     import torch
     from dpc_tpu_torch.ops import maxpool_cuda as P
 
@@ -544,33 +565,53 @@ def check_pool(shape, dtype, ties: bool, timed: bool) -> dict:
            f"{int((code_k != code_p).sum())} codes")
     dz_k = P.maxpool_relu_bwd(gout, code_k)
     dz_p = P.maxpool_relu_bwd_plain(gout, code_p)
+    raw_k, rcode_k = P.maxpool_fwd(z)
+    raw_p, rcode_p = P.maxpool_fwd_plain(z)
+    expect(torch.equal(raw_k, raw_p) and torch.equal(rcode_k, rcode_p),
+           f"the ReLU-off K1 differs from its plain version at {shape} "
+           f"{dtype}: {int((raw_k != raw_p).sum())} values, "
+           f"{int((rcode_k != rcode_p).sum())} codes")
+    expect(int(rcode_k.max()) <= 8, "the ReLU-off K1 wrote a dead code")
+    rdz_k = P.maxpool_relu_bwd(gout, rcode_k)
+    rdz_p = P.maxpool_relu_bwd_plain(gout, rcode_p)
     eq_k = P.maxpool_bwd_eq(z, gout)
     eq_p = P.maxpool_bwd_eq_plain(z, gout)
     eqr_k = P.maxpool_bwd_eq(z, gout, relu=True)
     eqr_p = P.maxpool_bwd_eq_plain(z, gout, relu=True)
     torch.cuda.synchronize()
-    res = {"fwd": {"err": 0.0},
+    res = {"fwd": {"err": 0.0}, "fwd_raw": {"err": 0.0},
            "bwd": {"err": _grad_err("K2", dz_k, dz_p, dtype)},
+           "bwd_raw": {"err": _grad_err("K2 (ReLU-off codes)", rdz_k, rdz_p,
+                                        dtype)},
            "eq": {"err": _grad_err("K8", eq_k, eq_p, dtype)},
            "eq_relu": {"err": _grad_err("K8 relu", eqr_k, eqr_p, dtype)}}
     del eq_p, eqr_p
     name = (f"pool {list(shape)} {str(dtype).split('.')[-1]}"
             + (" ties" if ties else ""))
     facts = [f"K1 bit-equal ({int((code_k == P.DEAD).sum())} dead codes)",
-             f"K2 err {res['bwd']['err']:.2e}", f"K8 err {res['eq']['err']:.2e}",
+             "ReLU-off K1 bit-equal",
+             f"K2 err {res['bwd']['err']:.2e} (ReLU-off codes "
+             f"{res['bwd_raw']['err']:.2e})", f"K8 err {res['eq']['err']:.2e}",
              f"K8 relu err {res['eq_relu']['err']:.2e}"]
     if z.numel() <= 2 ** 24:
         # first-max routing against ATen, in f32 on the same values (at a
         # size where normal f32 draws hold no tied window maxima)
         dz_aten = _aten_pool(z.float(), True, gout.float())
         _grad_err("K2 vs ATen", dz_k, dz_aten, dtype)
+        raw_aten = _aten_pool(z.float(), False)
+        expect(torch.equal(raw_k.float(),
+                           raw_aten.permute(0, 2, 3, 4, 1)[:, 0]),
+               "the ReLU-off K1 differs from ATen's max-pool")
+        _grad_err("K2 (ReLU-off codes) vs ATen", rdz_k,
+                  _aten_pool(z.float(), False, gout.float()), dtype)
         if dtype == torch.float32 and not ties:
             # bf16 draws tie within a window, where K8 gives every tied max
             # the gradient and ATen only the first
             _grad_err("K8 vs ATen", eq_k, _aten_pool(z.float(), False,
                                                      gout.float()), dtype)
             _grad_err("K8 relu vs ATen", eqr_k, dz_aten, dtype)
-        facts.append("K2 routes as ATen")
+        facts.append("K2 routes as ATen (both codes); ReLU-off K1 equals "
+                     "ATen's pool")
     if ties:
         # every tied max: K8 sends gradient where ATen's pool (no ReLU)
         # does not
@@ -591,6 +632,11 @@ def check_pool(shape, dtype, ties: bool, timed: bool) -> dict:
             ms=cuda_ms(lambda: P.maxpool_relu_fwd(z)),
             plain_ms=cuda_ms(lambda: P.maxpool_relu_fwd_plain(z)),
             library_ms=cuda_ms(lambda: _aten_pool(z, True)),
+            bound=bound_ms(nz + no + nc, ops))
+        res["fwd_raw"].update(
+            ms=cuda_ms(lambda: P.maxpool_fwd(z)),
+            plain_ms=cuda_ms(lambda: P.maxpool_fwd_plain(z)),
+            library_ms=cuda_ms(lambda: _aten_pool(z, False)),
             bound=bound_ms(nz + no + nc, ops))
         res["bwd"].update(
             ms=cuda_ms(lambda: P.maxpool_relu_bwd(gout, code_k)),
@@ -613,8 +659,8 @@ def check_pool(shape, dtype, ties: bool, timed: bool) -> dict:
         del dst
         log(f"[kernels] {name}: a copy of z {copy_ms:.3f} ms, "
             f"{2 * nz / copy_ms / 1e9:.3f} TB/s")
-        for k, label in (("fwd", "K1"), ("bwd", "K2"), ("eq", "K8"),
-                         ("eq_relu", "K8 relu")):
+        for k, label in (("fwd", "K1"), ("fwd_raw", "ReLU-off K1"),
+                         ("bwd", "K2"), ("eq", "K8"), ("eq_relu", "K8 relu")):
             t = res[k]
             lib = ("none" if t["library_ms"] is None
                    else f"{t['library_ms']:.3f}")
@@ -646,12 +692,12 @@ def check_eq(shape, dtype, ties: bool, misaligned: bool = False) -> None:
 
 
 def check_pool_nan(dtype) -> None:
-    """K1, K2 and K8 on data with NaNs: K1 gives NaN exactly where its plain
-    version (``dpc_tpu``'s kernel, whose max propagates NaN) and ATen's
-    relu-then-pool do, equal values and codes elsewhere, K2 routes as its
-    plain version does, and K8 (and its gated variant) routes nothing from
-    a window that holds a NaN, as its plain version and ``dpc_tpu``'s
-    kernel do."""
+    """K1, K2 and K8 on data with NaNs: K1 (and its ReLU-off instance) gives
+    NaN exactly where its plain version (``dpc_tpu``'s kernel, whose max
+    propagates NaN) and ATen's (relu-then-)pool do, equal values and codes
+    elsewhere, K2 routes as its plain version does, and K8 (and its gated
+    variant) routes nothing from a window that holds a NaN, as its plain
+    version and ``dpc_tpu``'s kernel do."""
     import torch
     from dpc_tpu_torch.ops import maxpool_cuda as P
 
@@ -673,6 +719,19 @@ def check_pool_nan(dtype) -> None:
            "K1 does not propagate NaN as its plain version and ATen do")
     _grad_err("K2 on NaN data", P.maxpool_relu_bwd(gout, code_k),
               P.maxpool_relu_bwd_plain(gout, code_p), dtype)
+    raw_k, rcode_k = P.maxpool_fwd(z)
+    raw_p, rcode_p = P.maxpool_fwd_plain(z)
+    raw_nan = raw_k.isnan()
+    aten_raw = _aten_pool(z, False).permute(0, 2, 3, 4, 1)[:, 0]
+    expect(raw_nan.any() and torch.equal(raw_nan, raw_p.isnan())
+           and torch.equal(raw_nan, aten_raw.isnan())
+           and torch.equal(raw_k.nan_to_num(), raw_p.nan_to_num())
+           and torch.equal(rcode_k, rcode_p),
+           "the ReLU-off K1 does not propagate NaN as its plain version "
+           "and ATen do")
+    _grad_err("K2 on NaN data (ReLU-off codes)",
+              P.maxpool_relu_bwd(gout, rcode_k),
+              P.maxpool_relu_bwd_plain(gout, rcode_p), dtype)
     for relu in (False, True):
         _grad_err(f"K8{' relu' if relu else ''} on NaN data",
                   P.maxpool_bwd_eq(z, gout, relu),
@@ -766,8 +825,9 @@ def check_pool_kernels() -> dict:
 
 def _small_step_check() -> None:
     """One f32 step at a small size through the kernels, through the
-    kernels with the eqroute stem (K1 and the gated K8), and through the
-    plain paths (scan GRU, materialised score, ATen stem pool), same
+    kernels with the fused stem (the ReLU-off K1 and K2) and with the
+    eqroute stem (K1 and the gated K8), and through the plain paths (scan
+    GRU, materialised score, the literal stem on ATen's pool), same
     weights and batch: the losses must agree."""
     import torch
     from dpc_tpu_torch.core.config import DPCConfig, TrainConfig
@@ -781,14 +841,16 @@ def _small_step_check() -> None:
         x = torch.randn(4, 4, 5, 64, 64, 3, device=dev,
                         generator=torch.Generator(device=dev).manual_seed(3))
         losses = {}
-        for name, gru_impl, nce_impl, stem in (
-                ("kernel", "pallas", "fused", "pallas"),
-                ("eqroute", "pallas", "fused", "eqroute"),
-                ("plain", "scan", "xla", "xla")):
+        for name, gru_impl, nce_impl, stem, stem_impl in (
+                ("kernel", "pallas", "fused", "pallas", "unfused"),
+                ("fused", "pallas", "fused", "pallas", "fused"),
+                ("eqroute", "pallas", "fused", "eqroute", "unfused"),
+                ("plain", "scan", "xla", "xla", "unfused")):
             cfg = DPCConfig(img_dim=64, num_seq=4, seq_len=5, pred_step=2,
                             gru_impl=gru_impl, gru_dropout=0.0)
             model = dpc.build_dpc(cfg, dev, seed=0)
             model.backbone.stem_pool_impl = stem
+            model.backbone.stem_impl = stem_impl
             tcfg = TrainConfig(batch_size=4, nce_impl=nce_impl)
             step = pretrain_step.make_pretrain_step(
                 cfg, tcfg, model, optim.pretrain_optimizer(model, 1e-3, 1e-5))
@@ -798,16 +860,200 @@ def _small_step_check() -> None:
                 expect(_build.LAUNCHES["maxpool_bwd_eq"] == 1
                        and _build.LAUNCHES["maxpool_relu_bwd"] == 0,
                        f"the eqroute step did not run K8: {_build.LAUNCHES}")
+            if name == "fused":
+                expect(_build.LAUNCHES["maxpool_fwd"] == 1
+                       and _build.LAUNCHES["maxpool_relu_bwd"] == 1
+                       and _build.LAUNCHES["maxpool_relu_fwd"] == 0,
+                       f"the fused stem did not run the ReLU-off K1 and K2: "
+                       f"{_build.LAUNCHES}")
         errs = {k: abs(losses[k] - losses["plain"]) / abs(losses["plain"])
-                for k in ("kernel", "eqroute")}
+                for k in ("kernel", "fused", "eqroute")}
         log(f"[step] small f32 check: kernel path loss {losses['kernel']}, "
-            f"eqroute stem {losses['eqroute']}, plain path "
-            f"{losses['plain']}, rel diff {errs['kernel']:.2e} / "
+            f"fused stem {losses['fused']}, eqroute stem "
+            f"{losses['eqroute']}, plain path {losses['plain']}, rel diff "
+            f"{errs['kernel']:.2e} / {errs['fused']:.2e} / "
             f"{errs['eqroute']:.2e}")
         expect(max(errs.values()) <= 1e-4,
                f"kernel paths and plain path disagree: {losses}")
     finally:
         torch.backends.cudnn.allow_tf32 = True
+
+
+def _close(got, want, tol: float) -> float:
+    """The largest ``|got − want| − tol·|want|`` (at most ``tol`` where the
+    two agree as numpy's ``assert_allclose(rtol=tol, atol=tol)`` asks)."""
+    return float(((got.double() - want.double()).abs()
+                  - tol * want.double().abs()).max())
+
+
+def check_fused_stem(device: str = "cuda") -> dict:
+    """``layers.fused_stem`` in f32 on the card (``_batch_stats``'
+    Welford statistics, ``_stats_backward``, the pooled affine on ATen's
+    batch-norm primitives, the ReLU-off K1 and K2) against the literal
+    stem on ATen and cuDNN (conv, ``F.batch_norm``, ReLU,
+    ``F.max_pool3d``), the same modules' weights: channels with γ < 0 and a
+    γ = 0 channel with β = 0.7, in the three BN modes (batch statistics;
+    LC train, with the EMA; eval).  Outputs to 1e-5, the gradients of x,
+    the conv weight, γ (the γ = 0 channel left out: the literal stem's
+    windows all tie there) and β to 2e-4, the running statistics to 1e-5
+    (1e-6 absolute), as the CPU tests hold the two.  Then the pooled
+    affine's forward and backward against the plain autograd expression
+    ``relu(p.float()·a + b).to(p.dtype)`` at the pretrain flagship's pooled
+    shape in bf16, in turns.  Returns the errors and the times.  On the
+    CPU (a dry run of the check) the plain versions run and nothing is
+    counted or timed."""
+    import torch
+    import torch.nn.functional as F
+    from dpc_tpu_torch.models import layers as L
+    from dpc_tpu_torch.ops import _build
+
+    dev = torch.device(device)
+    torch.backends.cudnn.allow_tf32 = False
+    found = {}
+    try:
+        g = torch.Generator(device=dev).manual_seed(11)
+        conv = torch.nn.Conv3d(3, 64, (1, 7, 7), (1, 2, 2), (0, 3, 3),
+                               bias=False).to(dev)
+        with torch.no_grad():
+            conv.weight.normal_(0.0, 0.1, generator=g)
+        x0 = torch.randn(4, 5, 64, 64, 3, device=dev, generator=g)
+        ct = torch.randn(4, 64, 5, 16, 16, device=dev, generator=g)
+        gamma = torch.empty(64, device=dev).uniform_(0.5, 1.5, generator=g)
+        gamma[::3] *= -1
+        gamma[1] = 0.0
+        beta = torch.randn(64, device=dev, generator=g)
+        beta[1] = 0.7
+        mean0 = 0.3 * torch.randn(64, device=dev, generator=g)
+        var0 = torch.empty(64, device=dev).uniform_(0.5, 2.0, generator=g)
+        live = torch.arange(64, device=dev) != 1
+
+        def unfused(c, bn, x):
+            return F.max_pool3d(F.relu(bn(c(x))), (1, 3, 3), (1, 2, 2),
+                                (0, 1, 1))
+
+        for mode, track, train in (("batch", False, True),
+                                   ("ema", True, True),
+                                   ("eval", True, False)):
+            got = {}
+            for name, fn in (("fused", L.fused_stem), ("unfused", unfused)):
+                bn = L.batchnorm3d(64, track_running_stats=track).to(dev)
+                with torch.no_grad():
+                    bn.weight.copy_(gamma)
+                    bn.bias.copy_(beta)
+                    if track:
+                        bn.running_mean.copy_(mean0)
+                        bn.running_var.copy_(var0)
+                bn.train(train)
+                conv.zero_grad()
+                x = x0.clone().requires_grad_(True)
+                _build.reset_launches()
+                y = fn(conv, bn, x.permute(0, 4, 1, 2, 3))
+                (y * ct).sum().backward()
+                if name == "fused" and dev.type == "cuda":
+                    n = dict(_build.LAUNCHES)
+                    expect(n["maxpool_fwd"] == 1
+                           and n["maxpool_relu_bwd"] == 1,
+                           f"the fused stem ({mode}) did not run the "
+                           f"ReLU-off K1 and K2: {n}")
+                got[name] = {"y": y.detach(), "dx": x.grad,
+                             "dw": conv.weight.grad.clone(),
+                             "dgamma": bn.weight.grad[live],
+                             "dbeta": bn.bias.grad,
+                             "stats": [bn.running_mean, bn.running_var]
+                             if track else [], "bn": bn}
+            f, u = got["fused"], got["unfused"]
+            err = {"y": _close(f["y"], u["y"], 1e-5)}
+            for k in ("dx", "dw", "dgamma", "dbeta"):
+                err[k] = _close(f[k], u[k], 2e-4)
+            err["stats"] = max([float(((a.double() - b.double()).abs()
+                                       - 1e-5 * b.double().abs()).max())
+                                for a, b in zip(f["stats"], u["stats"])],
+                               default=0.0)
+            found[mode] = err
+            log(f"[fused stem] f32 {mode} against the literal stem: "
+                f"max(|d| − tol·|want|) {err}; dgamma[γ=0] "
+                f"{float(f['bn'].weight.grad[1]):.4g} / "
+                f"{float(u['bn'].weight.grad[1]):.4g}")
+            expect(err["y"] <= 1e-5 and err["stats"] <= 1e-6
+                   and all(err[k] <= 2e-4
+                           for k in ("dx", "dw", "dgamma", "dbeta")),
+                   f"the fused stem ({mode}) disagrees with the literal "
+                   f"stem on the card: {err}")
+            expect(abs(float(f["bn"].weight.grad[1])) > 1e-3,
+                   f"the fused stem's dγ at γ = 0 is not live ({mode})")
+            expect(not track or int(f["bn"].num_batches_tracked)
+                   == int(u["bn"].num_batches_tracked),
+                   f"num_batches_tracked differs ({mode})")
+            if mode == "eval":
+                expect(bool((f["bn"].running_mean == mean0).all()
+                            and (f["bn"].running_var == var0).all()),
+                       "the fused stem's eval mode moved the running "
+                       "statistics")
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    if dev.type == "cuda":
+        found["affine"] = _time_pooled_affine()
+    return found
+
+
+def _time_pooled_affine(n: int = 20) -> dict:
+    """The fused stem's pooled affine (``layers._PooledAffineRelu``: ATen's
+    ``batch_norm_elemt`` forward, ``batch_norm_backward_reduce`` and
+    ``batch_norm_elemt`` backward) against the plain autograd expression
+    ``relu(p.float()·a + b).to(p.dtype)``, forward and backward, at the
+    pretrain flagship's pooled x' ``[512, 64, 5, 32, 32]`` bf16
+    channels-last-3d, in turns (plain, ATen, ATen, plain; n calls each,
+    CUDA events), with each one's memory above the inputs and their
+    agreement."""
+    import torch
+    from dpc_tpu_torch.models import layers as L
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(12)
+    cl = torch.channels_last_3d
+    p = torch.randn(512, 64, 5, 32, 32, device=dev, generator=g).to(
+        torch.bfloat16).contiguous(memory_format=cl).requires_grad_(True)
+    dy = torch.randn(p.shape, device=dev, generator=g).to(
+        torch.bfloat16).contiguous(memory_format=cl)
+    a = torch.rand(64, device=dev, generator=g).requires_grad_(True)
+    b = torch.randn(64, device=dev, generator=g).requires_grad_(True)
+    shape = (1, -1, 1, 1, 1)
+
+    def aten():
+        y = L._PooledAffineRelu.apply(p, a, b)
+        return (y, *torch.autograd.grad(y, (p, a, b), dy))
+
+    def plain():
+        y = torch.relu(p.float() * a.view(shape) + b.view(shape)).to(p.dtype)
+        return (y, *torch.autograd.grad(y, (p, a, b), dy))
+
+    outs = {"aten": aten(), "plain": plain()}
+    errs = [rel_err(x.detach(), w.detach())
+            for x, w in zip(outs["aten"], outs["plain"])]
+    expect(outs["aten"][0].is_contiguous(memory_format=cl),
+           "the pooled affine's output is not channels-last-3d")
+    del outs
+    ms = {"plain": [], "aten": []}
+    for name in ("plain", "aten", "aten", "plain"):
+        ms[name].append(cuda_ms(aten if name == "aten" else plain,
+                                iters=n, warmup=2))
+    extra = {}
+    for name, fn in (("plain", plain), ("aten", aten)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fn()
+        torch.cuda.synchronize()
+        extra[name] = (torch.cuda.max_memory_allocated() - base) / 2**30
+    log(f"[fused stem] pooled affine fwd+bwd at [512, 64, 5, 32, 32] bf16: "
+        f"ATen batch-norm primitives {ms['aten']} ms, plain autograd "
+        f"expression {ms['plain']} ms; memory above the inputs "
+        f"{extra['aten']:.3f} / {extra['plain']:.3f} GiB; rel err y, dp, "
+        f"da, db {errs}")
+    # bf16 y and dp: within an ulp; da, db: f32 sums in another order
+    expect(max(errs[:2]) <= 2 ** -7 and max(errs[2:]) <= 1e-3,
+           f"the pooled affine disagrees with its plain expression: {errs}")
+    return {"ms": ms, "extra_gib": extra, "errs": errs}
 
 
 def _profile(fn, path: str | None, label: str) -> None:
@@ -877,6 +1123,7 @@ def phase_step(profile: str | None) -> dict:
     from dpc_tpu_torch.ops import _build
 
     _small_step_check()
+    fused_stem = check_fused_stem()
     cfg, tcfg, model, step, x, gen = _pretrain_flagship()
     batch = tcfg.batch_size
     torch.cuda.reset_peak_memory_stats()
@@ -901,10 +1148,148 @@ def phase_step(profile: str | None) -> dict:
     expect(all(math.isfinite(v) for v in losses), f"non-finite loss {losses}")
     _profile(lambda: step(x, gen), profile, "pretrain R18-128 B=64 bf16")
     _compare_paths(cfg, tcfg, model, step, x, gen)
+    stems = _stem_turns("step", model.backbone,
+                        lambda: step(x, gen), batch)
     eq_launches = _eqroute_step(model, step, x, gen)
+    del model, step, x
+    torch.cuda.empty_cache()
+    sweep = nce_sweep()
+    _log_auto()
     return {"launches": launches, "eq_launches": eq_launches,
+            "stem_launches": stems["launches"], "nce_sweep": sweep,
+            "fused_stem": fused_stem,
             "clips_per_s": n_steps * batch / dt,
             "ms_per_step": 1e3 * dt / n_steps}
+
+
+def _stem_turns(what: str, bb, run, batch: int, n_steps: int = 5,
+                grads: bool = True) -> dict:
+    """``run()`` (a step or a forward of the model whose backbone is
+    ``bb``) with ``stem_impl`` "unfused" and "fused": each one's peak
+    memory, the launches of n_steps calls of each (fused: the ReLU-off K1
+    once a call and K1 never, unfused the other way round; K2 once a call
+    when ``grads``), and clips/s in turns (unfused, fused, fused,
+    unfused).  Restores ``bb.stem_impl``."""
+    import torch
+    from dpc_tpu_torch.ops import _build
+
+    before = bb.stem_impl
+
+    def with_stem(impl):
+        bb.stem_impl = impl
+        return run()
+
+    try:
+        peak = {}
+        for impl in ("unfused", "fused"):
+            with_stem(impl)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with_stem(impl)
+            torch.cuda.synchronize()
+            peak[impl] = torch.cuda.max_memory_allocated() / 2**30
+        launches = {}
+        for impl, fwd, other in (("unfused", "maxpool_relu_fwd",
+                                  "maxpool_fwd"),
+                                 ("fused", "maxpool_fwd", "maxpool_relu_fwd")):
+            _build.reset_launches()
+            for _ in range(n_steps):
+                with_stem(impl)
+            torch.cuda.synchronize()
+            n = launches[impl] = dict(_build.LAUNCHES)
+            expect(n[fwd] == n_steps and n[other] == 0
+                   and n["maxpool_relu_bwd"] == (n_steps if grads else 0),
+                   f"the {impl} stem ({what}) did not launch {fwd}"
+                   f"{' and K2' if grads else ''} once a call: {n}")
+        rates = _in_turns(lambda: with_stem("unfused"),
+                          lambda: with_stem("fused"), batch)
+    finally:
+        bb.stem_impl = before
+    log(f"[{what}] stem in turns: unfused {rates['plain']} clips/s, fused "
+        f"{rates['kernel']} clips/s; peak {peak['unfused']:.2f} / "
+        f"{peak['fused']:.2f} GiB; launches over {n_steps} calls "
+        f"{launches}")
+    return {"launches": launches, "rates": rates, "peak_gib": peak}
+
+
+# the F10 sweep of the NCE loss: (rows, candidates, D); R = C over the
+# pretrain batch sizes 16-256 (pred 3 x 4x4 cells), R18's D=256 and R50's
+# D=1024, and a rank's tile of {data:2} global negatives
+NCE_SWEEP = [(r, r, d) for d in (256, 1024) for r in (768, 3072, 6144, 12288)
+             ] + [(1536, 3072, 256)]
+
+
+def nce_sweep(n: int = 20) -> list:
+    """NCE forward and backward of the loss through the flash kernels (K5,
+    K6) and through the materialised score (the step's nce_impl="xla"
+    path), in turns (materialised, flash, flash, materialised; n calls
+    each, CUDA events), at each NCE_SWEEP shape: for nce_impl="auto"."""
+    import torch
+    from dpc_tpu_torch.ops import nce, nce_cuda
+
+    found = []
+    for r, c, d in NCE_SWEEP:
+        rows, cols, _ = _nce_case(r, c, d, r + c + d)
+        targets = (torch.arange(r, device=rows.device) % c).int()
+        rows.requires_grad_(True)
+        cols.requires_grad_(True)
+
+        def flash():
+            lse, pos, _ = nce_cuda.nce_lse_rank(rows, cols, targets)
+            (lse - pos).mean().backward()
+
+        def plain():
+            nce.nce_loss(rows @ cols.t(), targets)[0].backward()
+
+        ms = {"xla": [], "fused": []}
+        for name, fn in (("xla", plain), ("fused", flash)) * 2:
+            fn()
+        for name, fn in (("xla", plain), ("fused", flash), ("fused", flash),
+                         ("xla", plain)):
+            ms[name].append(cuda_ms(fn, iters=n, warmup=1))
+        peak = {}
+        for name, fn in (("xla", plain), ("fused", flash)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            fn()
+            torch.cuda.synchronize()
+            peak[name] = (torch.cuda.max_memory_allocated() - base) / 2**20
+        row = {"rows": r, "cols": c, "d": d, "xla_ms": ms["xla"],
+               "fused_ms": ms["fused"], "xla_extra_mib": peak["xla"],
+               "fused_extra_mib": peak["fused"],
+               "faster": ("fused" if min(ms["fused"]) < min(ms["xla"])
+                          else "xla"),
+               "auto": nce.pick_nce_impl(r, c, d, rows.device)}
+        found.append(row)
+        log(f"[nce sweep] {r}x{c} D={d}: fwd+bwd materialised "
+            f"{ms['xla']} ms, flash {ms['fused']} ms; extra memory "
+            f"{peak['xla']:.1f} / {peak['fused']:.1f} MiB; faster "
+            f"{row['faster']}, auto {row['auto']}")
+        del rows, cols
+    return found
+
+
+def _log_auto() -> None:
+    """What each "auto" switch resolves to on this card at the
+    flagships."""
+    import torch
+    from dpc_tpu_torch.core.config import EvalConfig, TrainConfig
+    from dpc_tpu_torch.data import device_augment
+    from dpc_tpu_torch.models.resnet2d3d import resolve_stem_impl
+    from dpc_tpu_torch.ops import nce
+
+    dev = torch.device("cuda")
+    fold = {name: device_augment.resolve_fold(c, dense)[0] for name, c, dense
+            in (("pretrain", TrainConfig(device_augment=True), False),
+                ("finetune", EvalConfig(device_augment=True), False),
+                ("dense_test", EvalConfig(device_augment=True), True))}
+    log(f"[auto] on {torch.cuda.get_device_name(0)}: stem_impl "
+        f"{resolve_stem_impl('auto', torch.empty(0, device=dev))}; "
+        f"nce_impl at the pretrain flagship (3072x3072, "
+        f"D=256) {nce.pick_nce_impl(3072, 3072, 256, dev)}, at R50's "
+        f"D=1024 {nce.pick_nce_impl(3072, 3072, 1024, dev)}; "
+        f"fold_normalize with --device_augment {fold}")
 
 
 def _eqroute_step(model, step, x, gen, n_steps: int = 5) -> dict:
@@ -916,6 +1301,8 @@ def _eqroute_step(model, step, x, gen, n_steps: int = 5) -> dict:
     from dpc_tpu_torch.ops import _build
 
     bb, batch = model.backbone, x.shape[0]
+    stem_before = bb.stem_impl
+    bb.stem_impl = "unfused"     # stem_pool_impl is the literal stem's
 
     def run(impl):
         bb.stem_pool_impl = impl
@@ -947,7 +1334,8 @@ def _eqroute_step(model, step, x, gen, n_steps: int = 5) -> dict:
         rates = _in_turns(lambda: run("auto"), lambda: run("eqroute"), batch)
     finally:
         bb.stem_pool_impl = "auto"
-    log(f"[step] stem in turns: default (K1/K2) {rates['plain']} clips/s, "
+        bb.stem_impl = stem_before
+    log(f"[step] stem pool in turns: K1/K2 {rates['plain']} clips/s, "
         f"eqroute (K1/K8) {rates['kernel']} clips/s; peak "
         f"{peak['auto']:.2f} / {peak['eqroute']:.2f} GiB")
     return launches
@@ -1011,13 +1399,16 @@ def _lc_parts(cfg, ecfg, seed: int = 0):
 
 
 def _small_lc_check() -> None:
-    """One f32 LC finetune step at a small size through the kernels (K1-K4)
-    and through the plain paths (ATen stem pool, scan GRU), same weights,
-    batch and labels, dropout off: the losses and the updated running
-    statistics must agree."""
+    """One f32 LC finetune step at a small size, same weights, batch and
+    labels, dropout off: through the kernels with the stem "auto" resolves
+    to (fused: the ReLU-off K1 and K2), through the kernels with the
+    unfused stem (K1-K4), and through the plain paths (the unfused stem on
+    ATen's pool, scan GRU).  The losses and the updated running statistics
+    of each kernel path must agree with the plain path's."""
     import torch
     from dpc_tpu_torch.core.config import DPCConfig, EvalConfig
     from dpc_tpu_torch.models import lc
+    from dpc_tpu_torch.ops import _build
 
     dev = torch.device("cuda")
     torch.backends.cudnn.allow_tf32 = False
@@ -1027,21 +1418,36 @@ def _small_lc_check() -> None:
         y = torch.randint(0, 11, (4,), device=dev, generator=g)
         ecfg = EvalConfig(num_classes=11, dropout=0.0, batch_size=4)
         loss, stats = {}, {}
-        for gru_impl, stem in (("pallas", "pallas"), ("scan", "xla")):
+        for name, gru_impl, pool, stem_impl in (
+                ("auto", "pallas", "pallas", "auto"),
+                ("unfused", "pallas", "pallas", "unfused"),
+                ("plain", "scan", "xla", "unfused")):
             cfg = DPCConfig(img_dim=64, num_seq=4, seq_len=5,
                             gru_impl=gru_impl, gru_dropout=0.0)
             model, step = _lc_parts(cfg, ecfg)
-            model.backbone.stem_pool_impl = stem
-            loss[stem] = float(step(x, y)["loss"])
-            stats[stem] = torch.cat([v.flatten()
+            model.backbone.stem_pool_impl = pool
+            model.backbone.stem_impl = stem_impl
+            _build.reset_launches()
+            loss[name] = float(step(x, y)["loss"])
+            if name == "auto":
+                expect(_build.LAUNCHES["maxpool_fwd"] == 1
+                       and _build.LAUNCHES["maxpool_relu_bwd"] == 1
+                       and _build.LAUNCHES["maxpool_relu_fwd"] == 0,
+                       f"the LC step under stem_impl='auto' did not run the "
+                       f"fused stem's kernels: {_build.LAUNCHES}")
+            stats[name] = torch.cat([v.flatten()
                                      for v in lc.running_stats(model).values()])
-        err = abs(loss["pallas"] - loss["xla"]) / abs(loss["xla"])
-        serr = rel_err(stats["pallas"], stats["xla"])
-        log(f"[lc] small f32 check: kernel path loss {loss['pallas']}, plain "
-            f"path {loss['xla']}, rel diff {err:.2e}; running stats rel diff "
-            f"{serr:.2e}")
-        expect(err <= 1e-4 and serr <= 1e-4,
-               f"LC kernel path and plain path disagree: {loss}, {serr}")
+        err = {k: abs(loss[k] - loss["plain"]) / abs(loss["plain"])
+               for k in ("auto", "unfused")}
+        serr = {k: rel_err(stats[k], stats["plain"])
+                for k in ("auto", "unfused")}
+        log(f"[lc] small f32 check: kernel path loss {loss['auto']} (fused "
+            f"stem), {loss['unfused']} (unfused stem), plain path "
+            f"{loss['plain']}, rel diff {err['auto']:.2e} / "
+            f"{err['unfused']:.2e}; running stats rel diff "
+            f"{serr['auto']:.2e} / {serr['unfused']:.2e}")
+        expect(max(err.values()) <= 1e-4 and max(serr.values()) <= 1e-4,
+               f"LC kernel paths and plain path disagree: {loss}, {serr}")
     finally:
         torch.backends.cudnn.allow_tf32 = True
 
@@ -1104,11 +1510,16 @@ def phase_lc(profile: str | None) -> dict:
                       batch)
     log(f"[lc] GRU path in turns: pallas (kernels) {rates['kernel']} clips/s,"
         f" scan (plain recurrence) {rates['plain']} clips/s")
+    del scan_step, opt
+    stems = {"train": _stem_turns("lc", model.backbone,
+                                  lambda: step(x, y, gen), batch)}
 
-    val = finetune_step.make_finetune_eval_step(cfg, ecfg, model)(x, y)
-    val = {k: float(v) for k, v in val.items()}
+    eval_step = finetune_step.make_finetune_eval_step(cfg, ecfg, model)
+    val = {k: float(v) for k, v in eval_step(x, y).items()}
     log(f"[lc] eval step: {val}")
     expect(all(math.isfinite(v) for v in val.values()), f"eval {val}")
+    stems["eval"] = _stem_turns("lc eval", model.backbone,
+                                lambda: eval_step(x, y), batch, grads=False)
 
     # the dense-test forward: 5 windows of 10 forwards, for its spread
     wb, n_fwd = 32, 10
@@ -1131,7 +1542,84 @@ def phase_lc(profile: str | None) -> dict:
         f"{100 * (rates[-1] - rates[0]) / rates[-1]:.1f}%")
     expect(logits[-1].shape == (wb, classes)
            and bool(torch.isfinite(logits[-1]).all()), "dense-test logits")
-    return {"launches": launches, "dense_test_windows_per_s": rates}
+    stems["dense"] = _stem_turns("lc dense test", model.backbone,
+                                 lambda: forward(windows), wb, grads=False)
+    del model, step, eval_step, forward, windows, x, logits
+    torch.cuda.empty_cache()
+    fold = fold_turns()
+    return {"launches": launches, "dense_test_windows_per_s": rates,
+            "stems": stems, "fold": fold}
+
+
+def fold_turns() -> dict:
+    """``--fold_normalize`` on and off with ``--device_augment``, in turns
+    (off, on, on, off; 5 calls each) on device-resident uint8 windows of
+    the recipes' geometry (UCF101 at 128): the pretrain flagship step (its
+    recipe inside the step), the LC finetune step, and the dense-test
+    forward (centre crop): for fold_normalize="auto"."""
+    import torch
+    from dpc_tpu_torch.core.config import DPCConfig, EvalConfig, TrainConfig
+    from dpc_tpu_torch.data import device_augment
+    from dpc_tpu_torch.models import dpc, lc
+    from dpc_tpu_torch.train import finetune_step, optim, pretrain_step
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    found = {}
+
+    def windows(b, task):
+        h, w = device_augment.device_augment_geometry("ucf101", 128, task)[1]
+        return torch.randint(0, 256, (b, 8, 5, h, w, 3), device=dev,
+                             dtype=torch.uint8, generator=gen)
+
+    def turns(name, make, batch):
+        off, on = make("off"), make("on")
+        found[name] = _in_turns(off, on, batch)
+        log(f"[fold] {name}: fold off {found[name]['plain']}, on "
+            f"{found[name]['kernel']} clips/s")
+
+    cfg = DPCConfig(compute_dtype="bfloat16", gru_impl="pallas")
+    model = dpc.build_dpc(cfg, dev, seed=0)
+    opt = optim.pretrain_optimizer(model, 1e-3, 1e-5)
+    u8 = windows(64, "pretrain")
+    agen = torch.Generator().manual_seed(0)
+
+    def pre(fold):
+        tcfg = TrainConfig(batch_size=64, nce_impl="fused",
+                           device_augment=True, fold_normalize=fold)
+        step = pretrain_step.make_pretrain_step(cfg, tcfg, model, opt)
+        return lambda: step(u8, gen, agen)
+
+    turns("pretrain step", pre, 64)
+    del model, opt, u8
+    torch.cuda.empty_cache()
+
+    lcfg = DPCConfig(compute_dtype="bfloat16", gru_impl="pallas",
+                     gru_dropout=0.1)
+    base = dict(num_classes=101, dropout=0.5, train_what="ft",
+                backbone_lr_scale=0.1, batch_size=32, device_augment=True)
+    model = lc.build_lc(lcfg, 101, dev, dropout=0.5, seed=0)
+    opt = optim.finetune_optimizer(model, 1e-3, 1e-3, "ft", 0.1)
+    u8 = windows(32, "finetune")
+    y = torch.randint(0, 101, (32,), device=dev, generator=gen)
+
+    def ft(fold):
+        step = finetune_step.make_finetune_step(
+            lcfg, EvalConfig(**base, fold_normalize=fold), model, opt)
+        return lambda: step(u8, y, gen, augment_gen=agen)
+
+    turns("finetune step", ft, 32)
+    u8 = windows(32, "test")
+
+    def dense(fold):
+        forward = finetune_step.make_test_forward(
+            lcfg, EvalConfig(**base, fold_normalize=fold), model)
+        return lambda: forward(u8)
+
+    turns("dense-test forward", dense, 32)
+    del model, opt, u8
+    torch.cuda.empty_cache()
+    return found
 
 
 # ---------------------------------------------------------------------------
@@ -1188,7 +1676,7 @@ def phase_cli() -> None:
     out = _run_cli(evaluate.main,
                    ["--dataset", "synthetic", "--test", "random",
                     "--synthetic_videos", "4", "--num_workers", "4"],
-                   "test cli", ("convgru_fwd", "maxpool_relu_fwd"))
+                   "test cli", EVAL_KERNELS)
     line = [ln for ln in out.splitlines() if ln.startswith("[test] loss")]
     expect(bool(line) and "top1" in line[0], "dense test printed no top1")
 
@@ -1590,7 +2078,7 @@ def _frames_device_augment(tmp: Path, data, pre_args, lc_args, paths,
         out = (run if extra else _run_cli)(evaluate.main, [
             *data, *lc_args, *extra, "--test", str(run_dir(ft_dir)),
             "--split", "2"], f"test {name}",
-            ("convgru_fwd", "maxpool_relu_fwd"))
+            EVAL_KERNELS)
         line = [ln for ln in out.splitlines() if ln.startswith("[test] loss")]
         expect(bool(line) and "16 videos" in out, f"test {name}: no result")
         test_loss[name] = float(line[0].split()[2].rstrip(";"))
@@ -1789,7 +2277,7 @@ def phase_frames(pre_args=FRAMES_PRETRAIN, lc_args=FRAMES_LC,
         (ft_run,) = [p for p in ft_dir.iterdir() if p.is_dir()]
         out = _run_cli(evaluate.main, [
             *data, *lc_args, "--test", str(ft_run), "--split", "2"],
-            "frames test", ("convgru_fwd", "maxpool_relu_fwd"))
+            "frames test", EVAL_KERNELS)
         top1 = [ln for ln in out.splitlines() if ln.startswith("[test] loss")]
         expect(bool(top1) and "top1" in top1[0] and "16 videos" in out,
                "the dense test of the finetune run printed no top1")
@@ -1839,6 +2327,7 @@ def phase_frames(pre_args=FRAMES_PRETRAIN, lc_args=FRAMES_LC,
 TOOL_TOL = 0.10  # the bench's and the breakdown's step against phase 3's
 # the CUDA kernel each launch counter's wrapper runs, as a trace names it
 TRACE_NAMES = {"maxpool_relu_fwd": "pool_fwd_kernel",
+               "maxpool_fwd": "pool_fwd_kernel",
                "maxpool_relu_bwd": "pool_bwd_kernel",
                "convgru_fwd": "gru_fwd_scan", "convgru_bwd": "gru_bwd_scan",
                "nce_fwd": "nce_fwd_kernel", "nce_bwd": "nce_bwd_kernel"}
@@ -1903,6 +2392,7 @@ def _trace_and_debug(tmp: Path) -> dict:
     name K1-K6; the stem conv's output dtype under the bf16 step; and
     ``enable_debug`` on the card: a NaN in the input raises in the step."""
     import torch
+    import torch.nn.functional as F
     from dpc_tpu_torch import bench
     from dpc_tpu_torch.utils import profiling
 
@@ -1911,10 +2401,18 @@ def _trace_and_debug(tmp: Path) -> dict:
     x = torch.from_numpy(bench.flagship_batch(cfg, tcfg)).to(dev)
     gen = torch.Generator(device=dev).manual_seed(2)
     seen = []
-    hook = model.backbone.conv1.register_forward_hook(
-        lambda mod, inp, out: seen.append((inp[0].dtype, out.dtype)))
-    step(x, gen)
-    hook.remove()
+    conv3d = F.conv3d          # the step's first conv3d is the stem conv's
+
+    def spy(inp, *args, **kwargs):
+        out = conv3d(inp, *args, **kwargs)
+        seen.append((inp.dtype, out.dtype))
+        return out
+
+    F.conv3d = spy
+    try:
+        step(x, gen)
+    finally:
+        F.conv3d = conv3d
     log(f"[tools] stem conv under the bf16 step: input {seen[0][0]}, "
         f"computes in {seen[0][1]} (weights "
         f"{model.backbone.conv1.weight.dtype})")
@@ -1925,7 +2423,8 @@ def _trace_and_debug(tmp: Path) -> dict:
     (path,) = (tmp / "trace").glob("*.pt.trace.json")
     names = {e.get("name", "") for e in json.loads(path.read_text())[
         "traceEvents"] if e.get("cat") == "kernel"}
-    found = {k: any(v in n for n in names) for k, v in TRACE_NAMES.items()}
+    found = {k: any(TRACE_NAMES[k] in n for n in names)
+             for k in PRETRAIN_KERNELS}
     log(f"[tools] profiling.trace of 2 steps: "
         f"{path.stat().st_size / 2**20:.1f} MiB, {len(names)} kernel names; "
         f"the port's kernels: {found}")
@@ -2032,8 +2531,6 @@ RANK_LAYOUTS = (
     ("data1_model2", 2, dict(negatives="global")),
 )
 RANK_STEPS = 5
-SHARD_KERNELS = ("convgru_fwd", "convgru_bwd", "nce_fwd_shard",
-                 "nce_bwd_shard", "maxpool_relu_fwd", "maxpool_relu_bwd")
 
 
 def _nce_case(r, c, d, seed, device: str = "cuda"):
@@ -2302,7 +2799,70 @@ def _ranks_body(rank: int, tmp: str, device: str, full: dict,
             device, save=os.path.join(tmp, f"{name}.pt") if mp == 2 else None)
     out["dense"] = _rank_dense_test(meshlib.make_mesh(0), tmp, device,
                                     dense_args)
+    out["stem_group"] = _rank_stem_group(meshlib.make_mesh(0), device)
     return out
+
+
+def _rank_stem_group(mesh, device: str) -> dict:
+    """The fused stem in f32 at a small size with its statistics over the
+    ranks of ``mesh`` (the ``bn_group`` of cross_replica_bn), each rank
+    holding its share of the batch, against the fused stem on the whole
+    batch on this rank alone: the output rows, dx and, summed over the
+    ranks, the gradients of the conv weight, γ and β; both BN modes with
+    batch statistics (the running statistics' EMA too).  Returns the
+    relative errors."""
+    import torch
+    from dpc_tpu_torch.models import layers as L
+    from dpc_tpu_torch.parallel import collectives
+
+    dev = torch.device(device)
+    g = torch.Generator(device=dev).manual_seed(7)
+    conv = torch.nn.Conv3d(3, 64, (1, 7, 7), (1, 2, 2), (0, 3, 3),
+                           bias=False).to(dev)
+    with torch.no_grad():                    # the same on every rank
+        conv.weight.normal_(0.0, 0.1, generator=g)
+    x = torch.randn(8, 2, 32, 32, 3, device=dev, generator=g)
+    ct = torch.randn(8, 64, 2, 8, 8, device=dev, generator=g)
+    per = x.shape[0] // mesh.size
+    rows = slice(mesh.rank * per, (mesh.rank + 1) * per)
+    errs = {}
+    for track in (False, True):
+        got = {}
+        for name, xs, cts, group in (
+                ("full", x, ct, None),
+                ("group", x[rows], ct[rows], mesh.world_group)):
+            bn = L.batchnorm3d(64, track_running_stats=track).to(dev)
+            with torch.no_grad():
+                bn.weight.uniform_(0.5, 1.5, generator=g)
+                bn.weight[::3] *= -1
+                bn.weight[1] = 0
+                bn.bias.normal_(generator=g)
+            if name == "group":
+                bn.load_state_dict(got["full"]["bn0"])
+            conv.zero_grad()
+            xg = xs.detach().requires_grad_(True)
+            got[name] = {"bn0": {k: v.clone()
+                                 for k, v in bn.state_dict().items()}}
+            y = L.fused_stem(conv, bn, xg.permute(0, 4, 1, 2, 3),
+                             group=group)
+            (y * cts).sum().backward()
+            grads = [conv.weight.grad, bn.weight.grad, bn.bias.grad]
+            if group is not None:
+                collectives.mean_flat_(grads, group)
+                grads = [t * mesh.size for t in grads]
+            got[name].update(y=y.detach(), dx=xg.grad, grads=grads,
+                             stats=[bn.running_mean, bn.running_var]
+                             if track else [])
+        full, grp = got["full"], got["group"]
+        errs[f"track={track}"] = {
+            "y": rel_err(grp["y"], full["y"][rows]),
+            "dx": rel_err(grp["dx"], full["dx"][rows]),
+            "grads": max(rel_err(a, b) for a, b in zip(grp["grads"],
+                                                       full["grads"])),
+            "stats": max([rel_err(a, b) for a, b in zip(grp["stats"],
+                                                        full["stats"])],
+                         default=0.0)}
+    return errs
 
 
 def _rank_dense_test(mesh, tmp: str, device: str, args: list,
@@ -2462,8 +3022,9 @@ def _check_dense_ranks(res: list, n: int, tol: float, what: str,
     expect(gap <= tol and many["top1"] == one["top1"]
            and many["top5"] == one["top5"],
            f"the {n}-rank dense test differs from 1 rank: {many} vs {one}")
+    kernels = EVAL_KERNELS
     expect(not on_card or all(r[n]["launches"][k] > 0 for r in res
-                              for k in ("convgru_fwd", "maxpool_relu_fwd")),
+                              for k in kernels),
            "K1 or K3 did not launch in a rank's dense test")
     return many["windows_per_s"], one["windows_per_s"]
 
@@ -2585,8 +3146,8 @@ def phase_ranks(device: str = "cuda", full: dict = RANK_FULL,
                    f"{kind}: the ranks' parameters differ after the steps")
         res = [r[name] for r in ranks]
         # CPU tensors take the plain versions: no launches to count there
-        kernels = (SHARD_KERNELS if mp == 2 else PRETRAIN_KERNELS) if timed \
-            else ()
+        kernels = ((SHARD_KERNELS if mp == 2 else PRETRAIN_KERNELS)
+                   if timed else ())
         for i, r in enumerate(res):
             expect(all(r["launches"][k] == RANK_STEPS for k in kernels),
                    f"{name} rank {i}: a kernel did not launch once a step: "
@@ -2622,6 +3183,15 @@ def phase_ranks(device: str = "cuda", full: dict = RANK_FULL,
         f"[ranks] dense test (LC R18-128 8x5 f32, 4 synthetic videos) on "
         f"{smi}, two ranks sharing one card,", timed)
     dense = {"two": two, "one": one}
+    for i, r in enumerate(ranks):
+        log(f"[ranks] fused stem over the group (f32, 8 clips) against the "
+            f"whole batch on one rank, rank {i}: rel errors "
+            f"{r['stem_group']}")
+        for mode, e in r["stem_group"].items():
+            expect(e["y"] <= TOL_VALUE and e["stats"] <= TOL_VALUE
+                   and max(e["dx"], e["grads"]) <= TOL_GRAD,
+                   f"the fused stem over the group differs from the whole "
+                   f"batch ({mode}, rank {i}): {e}")
     log(f"[ranks] the two ranks' run took {took:.1f} s")
     cli = _ranks_cli() if device == "cuda" else {}
     ft_cli = _ranks_finetune_cli() if device == "cuda" else {}
@@ -2707,7 +3277,8 @@ def nccl_ranks(n: int) -> dict:
             continue
         res = [r[name] for r in ranks]
         kernels = (SHARD_KERNELS if name == "data_model2" else
-                   LC_KERNELS if name.startswith("lc_") else PRETRAIN_KERNELS)
+                   LC_KERNELS if name.startswith("lc_")
+                   else PRETRAIN_KERNELS)
         expect(all(math.isfinite(v) for r in res for v in r["losses"]),
                f"{name}: non-finite loss")
         expect(len({r["digest"] for r in res}) == 1,
@@ -2746,19 +3317,25 @@ def nccl_ranks(n: int) -> dict:
 
 def kernels_line(k: dict, launches: dict) -> dict:
     """The per-kernel JSON record: K3-K4 and the pool kernels at the LC
-    flagship shapes with the LC path's launches (K8 with the eqroute
-    pretrain step's), K5-K6 at the pretrain shapes with the pretrain
-    path's launches, K7 with the model axis's."""
-    def row(name, src, replaces, t, err, n):
+    flagship shapes, K5-K6 at the pretrain shapes.  ``launches`` is each
+    kernel's count in the run of its path with the counts set to 0 just
+    before it: the pretrain flagship's main path (stem_impl "auto") for
+    K1, its ReLU-off instance and K5-K6, the LC main path for K2-K4, the
+    eqroute pretrain step for K8, the model axis's for K7.  K1 is off the
+    main path on the card ("auto" is the fused stem): its row adds its
+    count over the 5 steps of the unfused stem (``_stem_turns``) as
+    ``launches_unfused_stem``."""
+    def row(name, src, replaces, t, err, n, **extra):
         return {"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": n, "max_abs_err": err,
                 "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
-                "library_ms": t["library_ms"]}
+                "library_ms": t["library_ms"], **extra}
 
     g, n, p, k7 = k["gru_lc"], k["nce"], k["pool"], k["k7"]
     lc_n, pre_n, mp_n, eq_n = (launches["lc"], launches["pretrain"],
                                launches["model_axis"], launches["eqroute"])
+    unfused_n = launches["stem_unfused"]
     gru_src, nce_src = ("dpc_tpu_torch/csrc/convgru.cu",
                         "dpc_tpu_torch/csrc/nce.cu")
     pool_src, pool_tpu = ("dpc_tpu_torch/csrc/maxpool.cu",
@@ -2773,7 +3350,10 @@ def kernels_line(k: dict, launches: dict) -> dict:
         row("nce_bwd", nce_src, "dpc_tpu/ops/nce_pallas.py:224",
             n["bwd"], n["bwd_err"], pre_n["nce_bwd"]),
         row("maxpool_relu_fwd", pool_src, f"{pool_tpu}:163", p["fwd"],
-            p["fwd"]["err"], lc_n["maxpool_relu_fwd"]),
+            p["fwd"]["err"], pre_n["maxpool_relu_fwd"],
+            launches_unfused_stem=unfused_n["maxpool_relu_fwd"]),
+        row("maxpool_fwd", pool_src, f"{pool_tpu}:163", p["fwd_raw"],
+            p["fwd_raw"]["err"], pre_n["maxpool_fwd"]),
         row("maxpool_relu_bwd", pool_src, f"{pool_tpu}:208", p["bwd"],
             p["bwd"]["err"], lc_n["maxpool_relu_bwd"]),
         row("maxpool_bwd_eq", pool_src, f"{pool_tpu}:303", p["eq"],
@@ -2941,7 +3521,8 @@ def main(argv=None) -> int:
     print(json.dumps(kernels_line(
         {**k, "k7": ranks["k7"]},
         {"pretrain": s["launches"], "lc": lc["launches"],
-         "model_axis": ranks["launches"], "eqroute": s["eq_launches"]})))
+         "model_axis": ranks["launches"], "eqroute": s["eq_launches"],
+         "stem_unfused": s["stem_launches"]["unfused"]})))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)

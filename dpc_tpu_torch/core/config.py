@@ -141,16 +141,21 @@ class TrainConfig:
     pretrain: str = ""
     reset_lr: bool = False
     seed: int = 0
-    # Parallelism.  dpc_tpu_torch runs one device with local negatives so
-    # far; the fields are kept so config.json files read the same in both
-    # packages, and the train step rejects what it does not run yet.
+    # Parallelism (parallel/mesh.py): num_devices ranks in a (data, model)
+    # grid, one a card; the data axis splits the batch, the model axis
+    # shards the clips and the candidate pool (global negatives, the
+    # sharded NCE); train/pretrain_step.check_layout refuses a layout the
+    # steps cannot run before any rank starts.
     num_devices: int = 0         # 0 = all visible devices
     model_parallel: int = 1      # clip + candidate-pool sharding
     negatives: str = "local"     # "local" (= reference per-GPU semantics) | "global"
-    # NCE loss implementation: "auto" picks by projected score-matrix bytes
-    # (ops/nce.pick_nce_impl: the materialised score when it fits the
-    # device's memory, the flash kernels otherwise); "xla" (materialised
-    # score) / "fused" (flash kernels) force a path.
+    # NCE loss implementation: "auto" is ops/nce.pick_nce_impl: on the card
+    # the flash kernels for an embedding of at most FLASH_MAX_D = 512 (R18's
+    # 256) and the materialised score for wider ones (R50's 1024), as an
+    # H100 sweep measured them (PERF.md §6); the flash kernels
+    # whenever the score would not fit an eighth of the device's memory;
+    # the materialised score on the CPU.  "xla" (materialised score) /
+    # "fused" (flash kernels) force a path.
     nce_impl: str = "auto"
     fused_nce: bool = False      # deprecated alias for nce_impl="fused"
     device_augment: bool = False  # crop/flip/gray/jitter inside the step

@@ -29,7 +29,10 @@
 //    writes relu(max) in the input type and a uint8 code per channel: the
 //    winning k, or 9 when the max is <= 0 and the ReLU kills the gradient.
 //    The TPU wrote an int32 code; the meaning is the same, at a quarter of
-//    the bytes.
+//    the bytes.  The ReLU-off instance (kRelu = false, entry point
+//    maxpool_fwd: the fused stem's pool of the sign-folded conv output,
+//    dpc_tpu's _maxpool_sas_raw) writes the window max itself and the
+//    first-max code 0-8, never 9; K2 routes by either code.
 //  * K2: a thread owns the 2x2 block of input positions (2*o_h + {0,1},
 //    2*o_w + {0,1}) for one channel vector and gathers from the <= 2x2
 //    windows that cover them: an even row is covered at o = m/2 (d = 1), an
@@ -127,7 +130,7 @@ __device__ __forceinline__ float max_nan(float a, float b) {
   return r;
 }
 
-template <class T>
+template <class T, bool kRelu>
 __global__ void __launch_bounds__(NT) pool_fwd_kernel(const typename T::word* __restrict__ z,
                                                       typename T::word* __restrict__ out,
                                                       unsigned char* __restrict__ code,
@@ -171,8 +174,11 @@ __global__ void __launch_bounds__(NT) pool_fwd_kernel(const typename T::word* __
     float o[VEC];
 #pragma unroll
     for (int e = 0; e < VEC; ++e) {
-      o[e] = (best[e] > 0.f || best[e] != best[e]) ? best[e] : 0.f;
-      if (best[e] <= 0.f) idx[e] = 9;
+      o[e] = best[e];
+      if (kRelu) {
+        if (!(best[e] > 0.f || best[e] != best[e])) o[e] = 0.f;
+        if (best[e] <= 0.f) idx[e] = 9;
+      }
     }
     store_vec<T>(out + i * VEC, o);
     typename CodeWord<VEC>::type cw;
@@ -534,26 +540,38 @@ bool bad_shape(long long M, int H, int W, int C, int vec) {
   return M <= 0 || H <= 0 || W <= 0 || C <= 0 || H % 2 || W % 2 || C % vec;
 }
 
+template <bool kRelu>
+int launch_fwd(const void* z, void* out, unsigned char* code, long long M, int H, int W, int C,
+               int bf16, cudaStream_t s) {
+  const int vec = bf16 ? BF16::VEC : F32::VEC;
+  if (bad_shape(M, H, W, C, vec)) return (int)cudaErrorInvalidValue;
+  const long long cells = M * (H / 2) * (W / 2) * (C / vec);
+  if (bf16)
+    pool_fwd_kernel<BF16, kRelu><<<grid_for(cells), NT, 0, s>>>(
+        (const BF16::word*)z, (BF16::word*)out, code, cells, H, W, C);
+  else
+    pool_fwd_kernel<F32, kRelu><<<grid_for(cells), NT, 0, s>>>(
+        (const F32::word*)z, (F32::word*)out, code, cells, H, W, C);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// K1.  z [M, H, W, C] -> out [M, H/2, W/2, C] (same type), code uint8 of
-// out's shape.  bf16 != 0 selects bfloat16 data, else float32.  C must be a
-// multiple of 8 (bf16) or 4 (f32) and the pointers 16-byte aligned.
+// K1.  z [M, H, W, C] -> out = relu(max) [M, H/2, W/2, C] (same type), code
+// uint8 of out's shape (9: max <= 0).  bf16 != 0 selects bfloat16 data, else
+// float32.  C must be a multiple of 8 (bf16) or 4 (f32) and the pointers
+// 16-byte aligned.
 int maxpool_relu_fwd(const void* z, void* out, unsigned char* code, long long M, int H, int W,
                      int C, int bf16, void* stream) {
-  const int vec = bf16 ? BF16::VEC : F32::VEC;
-  if (bad_shape(M, H, W, C, vec)) return (int)cudaErrorInvalidValue;
-  const long long cells = M * (H / 2) * (W / 2) * (C / vec);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (bf16)
-    pool_fwd_kernel<BF16><<<grid_for(cells), NT, 0, s>>>(
-        (const BF16::word*)z, (BF16::word*)out, code, cells, H, W, C);
-  else
-    pool_fwd_kernel<F32><<<grid_for(cells), NT, 0, s>>>(
-        (const F32::word*)z, (F32::word*)out, code, cells, H, W, C);
-  return (int)cudaGetLastError();
+  return launch_fwd<true>(z, out, code, M, H, W, C, bf16, (cudaStream_t)stream);
+}
+
+// K1 without the ReLU: out = the window max, code 0-8.  As maxpool_relu_fwd.
+int maxpool_fwd(const void* z, void* out, unsigned char* code, long long M, int H, int W, int C,
+                int bf16, void* stream) {
+  return launch_fwd<false>(z, out, code, M, H, W, C, bf16, (cudaStream_t)stream);
 }
 
 // K2.  dout [M, H/2, W/2, C] and K1's code -> dz [M, H, W, C], every

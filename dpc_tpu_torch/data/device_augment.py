@@ -56,22 +56,31 @@ PRETRAIN_JITTER = (0.5, 0.5, 0.5, 0.25)
 FINETUNE_JITTER = {"train": (0.5, 0.5, 0.5, 0.25), "val": (0.2, 0.2, 0.2, 0.1)}
 
 
+# Whether fold_normalize="auto" folds with --device_augment: no.  The fold
+# measured slower than the recipe's own normalize on an NVIDIA H100 (PERF.md
+# §6, the fused stem's entry; chip_smoke.py's fold_turns): the pretrain
+# step by 2.4%, the finetune step by 2.7% and the dense-test forward by
+# 3.4%, as the fold's border correction is a pass over the 64-channel stem
+# activation in each direction and the normalize one over the 3-channel
+# input.
+FOLD_AUTO = False
+
+
 def resolve_fold(cfg, dense_test: bool = False):
     """``--fold_normalize`` resolved to ``(fold, input_norm)``: callers run
     the recipe with ``normalize_out=not fold`` and the model with
-    ``input_norm``.  'auto' folds in the dense test (uint8 windows feed the
-    stem directly) and not in the stochastic train and val recipes; 'on'
-    and 'off' force it."""
+    ``input_norm`` (uint8 windows' in the dense test, [0, 1] f32's in the
+    train and val recipes).  'auto' is ``FOLD_AUTO``; 'on' and 'off' force
+    it."""
     if cfg.fold_normalize not in ("auto", "on", "off"):
         raise ValueError("fold_normalize must be one of 'auto'|'on'|'off', "
                          f"got {cfg.fold_normalize!r}")
     if not getattr(cfg, "device_augment", False):
         return False, None
-    if dense_test:
-        fold = cfg.fold_normalize in ("auto", "on")
-        return fold, (INPUT_NORM_U8 if fold else None)
-    fold = cfg.fold_normalize == "on"
-    return fold, (INPUT_NORM_01 if fold else None)
+    fold = (FOLD_AUTO if cfg.fold_normalize == "auto"
+            else cfg.fold_normalize == "on")
+    norm = INPUT_NORM_U8 if dense_test else INPUT_NORM_01
+    return fold, (norm if fold else None)
 
 
 def device_augment_geometry(dataset: str, img_dim: int,
@@ -355,8 +364,9 @@ def color_jitter(clips: torch.Tensor, factors: torch.Tensor) -> torch.Tensor:
 
 
 def normalize(clips: torch.Tensor) -> torch.Tensor:
-    mean = torch.as_tensor(IMAGENET_MEAN, device=clips.device)
-    std = torch.as_tensor(IMAGENET_STD, device=clips.device)
+    # asynchronous copies: a blocking one waits for the queued work
+    mean = torch.from_numpy(IMAGENET_MEAN).to(clips.device, non_blocking=True)
+    std = torch.from_numpy(IMAGENET_STD).to(clips.device, non_blocking=True)
     return (clips - mean) / std
 
 

@@ -22,7 +22,7 @@ def select_backbone(network: str, track_running_stats: bool = True
     param mirrors the reference's dict: ``feature_size`` (256 for
     BasicBlock nets, 1024 for Bottleneck — ``select_backbone.py:4-20``).
     The constructor takes ``ResNet2d3d``'s remaining keyword arguments
-    (``stem_pool_impl``).
+    (``stem_pool_impl``, ``stem_impl``).
     """
     if network not in resnet2d3d.ARCH:
         raise ValueError(f"unknown backbone: {network!r}")

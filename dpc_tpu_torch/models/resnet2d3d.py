@@ -7,10 +7,15 @@ too), the stem never strides time, layer4 keeps 256 planes, and the last
 block of layer4 skips its final ReLU so the DPC head reads a
 pre-activation embedding.
 
-The stem is the literal conv → BN → ReLU → max-pool; the pool runs
+``stem_impl`` switches the stem as ``dpc_tpu``'s ``apply_resnet2d3d``
+does: "unfused" is the literal conv → BN → ReLU → max-pool, whose pool runs
 ``layers.relu_maxpool_stem`` with ``stem_pool_impl`` ("auto": the CUDA
-kernels on the card).  ``input_norm`` folds the input's normalize into the
-stem conv (``layers.conv3d_input_norm``, the ``--fold_normalize`` of
+kernels on the card); "fused" is ``layers.fused_stem`` (the normalize
+deferred to the pooled resolution, K1's ReLU-off instance and K2);
+"auto" is "unfused" for a CPU tensor, as ``dpc_tpu`` off the TPU, and on
+the card ``STEM_AUTO_CUDA`` ("fused").  ``input_norm``
+folds the input's normalize into the stem conv
+(``layers.conv3d_input_norm``, the ``--fold_normalize`` of
 ``--device_augment``).  ``bn_group`` takes every BN's batch statistics
 over a process group (``layers.batchnorm``; ``dpc_tpu``'s ``axis_name``),
 None this rank's batch.  ``track_running_stats=True`` builds the LC
@@ -46,6 +51,27 @@ ARCH: dict[str, tuple[tuple[str, str, str, str], tuple[int, int, int, int]]] = {
 STAGE_PLANES = (64, 128, 256, 256)
 STAGE_STRIDES = (1, 2, 2, 2)
 EXPANSION = {"basic2d": 1, "basic3d": 1, "bottleneck2d": 4, "bottleneck3d": 4}
+
+
+STEM_IMPLS = ("auto", "fused", "unfused")
+# What stem_impl="auto" runs on the card, in every BN mode.  Timed in turns
+# with the literal stem on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §5
+# and §6, the fused stem's entry; chip_smoke.py phases 3-4), the fused
+# stem was faster in each mode: the pretrain flagship step (batch
+# statistics) by 3.3%, the LC finetune step (EMA) by 2.9%, its eval step
+# (running statistics) by 3.5% and the dense-test forward by 3.6%.
+STEM_AUTO_CUDA = "fused"
+
+
+def resolve_stem_impl(impl: str, x: torch.Tensor) -> str:
+    """``impl`` with "auto" resolved for the stem input ``x``: "unfused" on
+    the CPU, ``STEM_AUTO_CUDA`` on the card."""
+    if impl not in STEM_IMPLS:
+        raise ValueError(f"unknown stem_impl {impl!r} "
+                         "(expected auto | fused | unfused)")
+    if impl != "auto":
+        return impl
+    return STEM_AUTO_CUDA if x.is_cuda else "unfused"
 
 
 def _block_specs(network: str) -> list[list[dict]]:
@@ -142,15 +168,33 @@ class ResNet2d3d(nn.Module):
 
     def __init__(self, network: str = "resnet18",
                  track_running_stats: bool = False,
-                 stem_pool_impl: str = "auto"):
+                 stem_pool_impl: str = "auto", stem_impl: str = "auto"):
         super().__init__()
+        if stem_impl not in STEM_IMPLS:
+            raise ValueError(f"unknown stem_impl {stem_impl!r} "
+                             "(expected auto | fused | unfused)")
         self.network = network
         self.stem_pool_impl = stem_pool_impl
+        self.stem_impl = stem_impl
         self.conv1 = L.conv3d(3, 64, (1, 7, 7), (1, 2, 2), (0, 3, 3))
         self.bn1 = L.batchnorm3d(64, track_running_stats)
         for si, stage in enumerate(_block_specs(network)):
             setattr(self, f"layer{si + 1}", nn.Sequential(
                 *[Block(spec, track_running_stats) for spec in stage]))
+
+    def stem(self, h: torch.Tensor, input_norm: Optional[tuple] = None,
+             bn_group=None) -> torch.Tensor:
+        """The stem of NCDHW ``h``: conv, BN, ReLU and the 3×3/s2 max-pool,
+        fused or in the literal order as ``stem_impl`` resolves
+        (``stem_pool_impl`` picks the literal order's pool)."""
+        impl = resolve_stem_impl(self.stem_impl, h)
+        if impl == "fused":
+            return L.fused_stem(self.conv1, self.bn1, h,
+                                input_norm=input_norm, group=bn_group)
+        h = (self.conv1(h) if input_norm is None
+             else L.conv3d_input_norm(self.conv1, h, input_norm))
+        return L.relu_maxpool_stem(L.batchnorm(self.bn1, h, bn_group),
+                                   self.stem_pool_impl)
 
     def forward(self, x: torch.Tensor, input_norm: Optional[tuple] = None,
                 bn_group=None) -> torch.Tensor:
@@ -159,11 +203,7 @@ class ResNet2d3d(nn.Module):
         folded into the stem conv.  ``bn_group``: the process group of the
         BN statistics (None: this rank's batch)."""
         # NDHWC → NCDHW is a view with channels_last_3d strides
-        h = x.permute(0, 4, 1, 2, 3)
-        h = (self.conv1(h) if input_norm is None
-             else L.conv3d_input_norm(self.conv1, h, input_norm))
-        h = L.relu_maxpool_stem(L.batchnorm(self.bn1, h, bn_group),
-                                self.stem_pool_impl)
+        h = self.stem(x.permute(0, 4, 1, 2, 3), input_norm, bn_group)
         for si in range(4):
             for block in getattr(self, f"layer{si + 1}"):
                 h = block(h, bn_group)

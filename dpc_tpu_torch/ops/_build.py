@@ -36,7 +36,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES: dict[str, int] = {"convgru_fwd": 0, "convgru_bwd": 0,
                             "nce_fwd": 0, "nce_bwd": 0,
                             "nce_fwd_shard": 0, "nce_bwd_shard": 0,
-                            "maxpool_relu_fwd": 0, "maxpool_relu_bwd": 0,
+                            "maxpool_relu_fwd": 0, "maxpool_fwd": 0,
+                            "maxpool_relu_bwd": 0,
                             "maxpool_bwd_eq": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -116,6 +117,7 @@ _SIGS = {
             "nce_fwd_scratch_floats": 3 * ["i"],
             "nce_bwd_scratch_floats": 3 * ["i"]},
     "maxpool": {"maxpool_relu_fwd": 3 * ["p"] + ["l"] + 4 * ["i"] + ["p"],
+                "maxpool_fwd": 3 * ["p"] + ["l"] + 4 * ["i"] + ["p"],
                 "maxpool_relu_bwd": 3 * ["p"] + ["l"] + 4 * ["i"] + ["p"],
                 "maxpool_bwd_eq": 3 * ["p"] + ["l"] + 5 * ["i"] + ["p"]},
 }

@@ -2,10 +2,10 @@
 PyTorch versions.
 
 Port of ``dpc_tpu/ops/maxpool_pallas.py``.  On CUDA tensors
-``maxpool_relu_fwd`` runs K1, ``maxpool_relu_bwd`` K2 and
-``maxpool_bwd_eq`` K8 (``csrc/maxpool.cu``); on CPU tensors each runs its
-``*_plain`` version.  There is no fallback between them: a CUDA tensor
-launches the kernel or raises.
+``maxpool_relu_fwd`` runs K1, ``maxpool_fwd`` K1's ReLU-off instance,
+``maxpool_relu_bwd`` K2 and ``maxpool_bwd_eq`` K8 (``csrc/maxpool.cu``);
+on CPU tensors each runs its ``*_plain`` version.  There is no fallback
+between them: a CUDA tensor launches the kernel or raises.
 
 The kernels work on a channels-last view ``[M, H, W, C]`` (M = N·T, H and W
 even).  The public functions keep the JAX package's NDHWC layout:
@@ -19,11 +19,15 @@ even).  The public functions keep the JAX package's NDHWC layout:
   gradient.
 * ``relu_maxpool_3x3s2_eq(z)``: ``relu(maxpool(z))`` through K1 forward and
   K8 gated by z > 0 backward: the stem's ``eqroute`` pool.
+* ``maxpool_3x3s2(z)``: ``maxpool(z)``, no ReLU, through K1's ReLU-off
+  instance and K2, first-max routing: the fused stem's pool
+  (``dpc_tpu``'s ``layers._maxpool_sas_raw``).
 
 The code of an output element is the first maximal window slot ``k = 3·dh +
 dw`` (0-8), or 9 when the window max is ≤ 0 and the ReLU kills the
-gradient.  A window that holds a NaN gives NaN, as ``dpc_tpu``'s kernel
-does, with the code of its last max before the first NaN.
+gradient; the ReLU-off instance never writes 9.  A window that holds a
+NaN gives NaN, as ``dpc_tpu``'s kernel does, with the code of its last max
+before the first NaN.
 """
 
 from __future__ import annotations
@@ -82,13 +86,12 @@ def _pad(x: torch.Tensor, fill: float) -> torch.Tensor:
     return F.pad(x, (0, 0, 1, 1, 1, 1), value=fill)
 
 
-def maxpool_relu_fwd_plain(z: torch.Tensor
-                           ) -> tuple[torch.Tensor, torch.Tensor]:
-    """``(relu(maxpool(z)), code)`` of ``z [M, H, W, C]``; compares in f32,
-    the first strict > in window order wins, −inf padding never does.  The
-    running max propagates NaN, as ``dpc_tpu``'s kernel's does: a window
-    that holds a NaN gives NaN and keeps the code of its last max before
-    the first NaN."""
+def maxpool_fwd_plain(z: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(maxpool(z), code)`` of ``z [M, H, W, C]``, no ReLU; compares in
+    f32, the first strict > in window order wins (code 0-8), −inf padding
+    never does.  The running max propagates NaN, as ``dpc_tpu``'s kernel's
+    does: a window that holds a NaN gives NaN and keeps the code of its
+    last max before the first NaN."""
     m, h, w, c = _pool_shape(z.shape)
     ho, wo = h // 2, w // 2
     zp = _pad(z.float(), float("-inf"))
@@ -99,10 +102,18 @@ def maxpool_relu_fwd_plain(z: torch.Tensor
         win = zp[:, dh:dh + 2 * ho:2, dw:dw + 2 * wo:2]
         code.masked_fill_(win > best, k)
         best = torch.maximum(best, win)
+    return best.to(z.dtype), code
+
+
+def maxpool_relu_fwd_plain(z: torch.Tensor
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(relu(maxpool(z)), code)``: ``maxpool_fwd_plain`` with the ReLU's
+    clamp, and the code 9 where the window max is ≤ 0 (NaN stays NaN)."""
+    best, code = maxpool_fwd_plain(z)
     code.masked_fill_(best <= 0, DEAD)
     out = torch.where((best > 0) | best.isnan(), best,
                       torch.zeros_like(best))
-    return out.to(z.dtype), code
+    return out, code
 
 
 def maxpool_relu_bwd_plain(dout: torch.Tensor, code: torch.Tensor
@@ -175,6 +186,20 @@ def maxpool_relu_fwd(z: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return out, code
 
 
+def maxpool_fwd(z: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1's ReLU-off instance.  z ``[M, H, W, C]`` bf16 or f32 → ``(out
+    [M, H/2, W/2, C]`` in z's dtype, ``code`` uint8 0-8 of out's shape)."""
+    if z.device.type == "cpu":
+        return maxpool_fwd_plain(z)
+    m, h, w, c = _pool_shape(z.shape)
+    bf16 = _check_cuda(z, vector=True)
+    out = torch.empty((m, h // 2, w // 2, c), dtype=z.dtype, device=z.device)
+    code = torch.empty(out.shape, dtype=torch.uint8, device=z.device)
+    _build.launch("maxpool", "maxpool_fwd", z, out, code, m, h, w, c,
+                  int(bf16))
+    return out, code
+
+
 def maxpool_relu_bwd(dout: torch.Tensor, code: torch.Tensor) -> torch.Tensor:
     """K2.  dout ``[M, H/2, W/2, C]`` and K1's code → dz ``[M, H, W, C]``."""
     if dout.device.type == "cpu":
@@ -211,17 +236,20 @@ def maxpool_bwd_eq(src: torch.Tensor, g: torch.Tensor,
     return dz
 
 
-class _ReluMaxPool(torch.autograd.Function):
+class _CodedMaxPool(torch.autograd.Function):
+    """K1 (``relu``) or its ReLU-off instance forward, K2 by its codes
+    backward."""
+
     @staticmethod
-    def forward(ctx, z4):
-        out, code = maxpool_relu_fwd(z4)
+    def forward(ctx, z4, relu: bool):
+        out, code = (maxpool_relu_fwd if relu else maxpool_fwd)(z4)
         ctx.save_for_backward(code)
         return out
 
     @staticmethod
     def backward(ctx, g):
         (code,) = ctx.saved_tensors
-        return maxpool_relu_bwd(g.contiguous(), code)
+        return maxpool_relu_bwd(g.contiguous(), code), None
 
 
 class _MaxPoolEq(torch.autograd.Function):
@@ -265,7 +293,17 @@ def relu_maxpool_3x3s2(z: torch.Tensor) -> torch.Tensor:
     and K2 on CUDA tensors.  The counterpart of
     ``maxpool_pallas.maxpool_relu_3x3s2``."""
     n, t, h, w, c = z.shape
-    out = _ReluMaxPool.apply(_as_m_h_w_c(z))
+    out = _CodedMaxPool.apply(_as_m_h_w_c(z), True)
+    return out.reshape(n, t, h // 2, w // 2, c)
+
+
+def maxpool_3x3s2(z: torch.Tensor) -> torch.Tensor:
+    """``maxpool3d(z, (1,3,3), (1,2,2), (0,1,1))`` over NDHWC (even H, W),
+    no ReLU, through K1's ReLU-off instance and K2 (first-max routing) on
+    CUDA tensors; saves only the uint8 code.  The counterpart of
+    ``dpc_tpu``'s ``layers._maxpool_sas_raw``, the fused stem's pool."""
+    n, t, h, w, c = z.shape
+    out = _CodedMaxPool.apply(_as_m_h_w_c(z), False)
     return out.reshape(n, t, h // 2, w // 2, c)
 
 

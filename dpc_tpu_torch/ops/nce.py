@@ -84,13 +84,27 @@ def device_memory_bytes(device: torch.device) -> int:
     return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
 
 
-def pick_nce_impl(n_rows: int, n_cols: int, device: torch.device,
+# The widest embedding for which the flash kernels (K5, K6) run the loss
+# faster than the materialised score on the card: forward and backward of
+# the loss in turns on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6, the
+# fused stem's entry; chip_smoke.py's nce_sweep), R = C from 768 to
+# 12288: K5/K6 faster at D = 256 at every R (1.5x at 6144 and 12288), the
+# materialised score 2.1-3.4x faster at D = 1024 from R = 3072 on (K6's
+# backward).  D between 256 and 1024 was not measured.
+FLASH_MAX_D = 512
+
+
+def pick_nce_impl(n_rows: int, n_cols: int, d: int, device: torch.device,
                   budget_frac: float = 0.125) -> str:
-    """'xla' (materialised score) or 'fused' (flash kernels) by projected
-    score bytes: 'fused' when the two score-sized buffers (forward score,
-    backward softmax) would claim more than ``budget_frac`` of the
-    device's memory.  The name 'xla' is kept so configs read the same in
-    both packages; here it means the plain matmul + softmax path."""
+    """'xla' (materialised score) or 'fused' (flash kernels) for an
+    ``[n_rows, d]`` by ``[n_cols, d]`` score: 'fused' when the two
+    score-sized buffers (forward score, backward softmax) would claim more
+    than ``budget_frac`` of the device's memory; below that, on the card
+    'fused' for ``d <= FLASH_MAX_D`` (the H100 measurement), and the
+    materialised score elsewhere and on the CPU.  The name 'xla' is kept
+    so configs read the same in both packages; here it means the plain
+    matmul + softmax path."""
     score_bytes = 2 * 4 * n_rows * n_cols
-    return ("fused" if score_bytes > budget_frac * device_memory_bytes(device)
-            else "xla")
+    if score_bytes > budget_frac * device_memory_bytes(device):
+        return "fused"
+    return "fused" if device.type == "cuda" and d <= FLASH_MAX_D else "xla"

@@ -53,7 +53,7 @@ def sharded_nce_loss(pred: torch.Tensor, gt: torch.Tensor, mesh: Mesh, *,
     cols = cols_full[mesh.model_index * c_local:
                      (mesh.model_index + 1) * c_local]
     if impl == "auto":
-        impl = nce.pick_nce_impl(rows.shape[0], c_local, rows.device)
+        impl = nce.pick_nce_impl(rows.shape[0], c_local, d, rows.device)
     if impl not in ("xla", "fused"):
         raise ValueError(f"impl must be 'auto'|'xla'|'fused', got {impl!r}")
     global_pos, safe, owned = _positives(mesh, rows.shape[0], c_local,

@@ -8,8 +8,8 @@ each layer, and whole, forward and forward+backward; the stem conv alone;
 the head (GRU, rollout and NCE from precomputed features); and the model's
 loss without the optimizer.  Each time is the mean of ``--iters`` calls
 between two ``synchronize``s of the card, after one warm-up call.  The
-stem is the production stem: conv, BN, then ``relu_maxpool_stem``, which
-is the K1/K2 kernels on the card.
+stem is the production stem, the backbone's ``stem`` method: the fused
+or the literal stem as ``stem_impl`` resolves.
 
 ``--profile PATH`` adds a ``torch.profiler`` record of two full steps with
 the ops' input shapes: the table grouped by input shape, and each kernel's
@@ -34,7 +34,7 @@ import torch
 
 from dpc_tpu_torch import bench
 from dpc_tpu_torch.core.config import resolve_device
-from dpc_tpu_torch.models import dpc, layers as L
+from dpc_tpu_torch.models import dpc
 from dpc_tpu_torch.train import pretrain_step
 from dpc_tpu_torch.utils import profiling
 
@@ -79,8 +79,7 @@ def components(cfg, tcfg, model, step, x, gen) -> dict[str, Callable]:
         params = [p for m in modules for p in m.parameters()]
 
         def f():
-            h = bb.conv1(clips.permute(0, 4, 1, 2, 3))
-            h = L.relu_maxpool_stem(bb.bn1(h), bb.stem_pool_impl)
+            h = bb.stem(clips.permute(0, 4, 1, 2, 3))
             for si in range(n_stages):
                 h = getattr(bb, f"layer{si + 1}")(h)
             return h

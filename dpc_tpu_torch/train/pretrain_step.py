@@ -68,7 +68,8 @@ def resolve_nce_impl(train_cfg: TrainConfig, model_cfg: DPCConfig,
     rows = train_cfg.batch_size // n_data * cells
     cols_b = (train_cfg.batch_size if train_cfg.negatives == "global"
               else train_cfg.batch_size // n_data)
-    return nce.pick_nce_impl(rows, cols_b * cells // n_model, device)
+    return nce.pick_nce_impl(rows, cols_b * cells // n_model,
+                             model_cfg.feature_size, device)
 
 
 def check_layout(train_cfg: TrainConfig, n_data: int, n_model: int) -> None:

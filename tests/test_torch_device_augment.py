@@ -11,6 +11,7 @@ tap, a colour matrix or Normalize to 1e-5 absolute on normalised values
 (the sums run in another order than XLA's contractions).
 """
 
+import dataclasses
 import math
 
 import jax
@@ -203,6 +204,9 @@ def test_finetune_augment_batch(mode):
 @pytest.mark.parametrize("fold", ["auto", "on", "off"])
 @pytest.mark.parametrize("device_augment", [False, True])
 def test_resolve_fold_and_geometry_match(fold, device_augment):
+    """'on' and 'off' resolve as in dpc_tpu; 'auto' follows the H100 rule
+    ``FOLD_AUTO`` (dpc_tpu's is the v5e's, which folded in the dense
+    test), with dpc_tpu's input_norm wherever it folds."""
     for ours, ref in ((TrainConfig(device_augment=device_augment,
                                    fold_normalize=fold),
                        JaxTrainConfig(device_augment=device_augment,
@@ -213,6 +217,11 @@ def test_resolve_fold_and_geometry_match(fold, device_augment):
                                      fold_normalize=fold))):
         for dense in (False, True):
             a, b = da.resolve_fold(ours, dense), jda.resolve_fold(ref, dense)
+            if fold == "auto" and device_augment:
+                want = da.FOLD_AUTO
+                assert a[0] == want and (a[1] is not None) == want
+                b = jda.resolve_fold(dataclasses.replace(
+                    ref, fold_normalize="on" if want else "off"), dense)
             assert a[0] == b[0] and (a[1] is None) == (b[1] is None)
             if a[1] is not None:
                 assert a[1][2] == b[1][2]

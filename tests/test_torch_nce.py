@@ -99,9 +99,26 @@ def test_targets_and_mask_match_jax():
 
 def test_pick_nce_impl_reads_device_memory():
     cpu = torch.device("cpu")
-    assert nce.pick_nce_impl(8, 8, cpu) == "xla"
+    assert nce.pick_nce_impl(8, 8, 256, cpu) == "xla"
     huge = int(np.sqrt(nce.device_memory_bytes(cpu))) + 1
-    assert nce.pick_nce_impl(huge, huge, cpu) == "fused"
+    assert nce.pick_nce_impl(huge, huge, 256, cpu) == "fused"
+
+
+def test_pick_nce_impl_follows_the_h100_sweep(monkeypatch):
+    """On the card: the flash kernels at D = 256 at every corner of the
+    sweep, the materialised score at D = 1024 (from R = 3072 on, where
+    the sweep measured it 2.1-3.4x faster; at 768 rows both are launch
+    bound), and the flash kernels whenever the score would not fit the
+    memory budget, whatever D."""
+    card = torch.device("cuda")
+    monkeypatch.setattr(nce, "device_memory_bytes", lambda device: 80 << 30)
+    for r, c in ((768, 768), (3072, 3072), (12288, 12288), (1536, 3072)):
+        assert nce.pick_nce_impl(r, c, 256, card) == "fused"
+        assert nce.pick_nce_impl(r, c, 1024, card) == "xla"
+    assert nce.pick_nce_impl(3072, 3072, nce.FLASH_MAX_D, card) == "fused"
+    assert nce.pick_nce_impl(3072, 3072, nce.FLASH_MAX_D + 1, card) == "xla"
+    huge = int(np.sqrt((80 << 30) / 64)) + 1
+    assert nce.pick_nce_impl(huge, huge, 1024, card) == "fused"
 
 
 # --- the kernels' arithmetic, emulated in plain torch -----------------------

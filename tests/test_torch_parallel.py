@@ -37,7 +37,10 @@ statistics within 1e-5 of each tensor's largest, the updated parameters
 as above, the SGD ratio of ``{data:2, model:2}`` to ``{data:2}`` 1 within
 1e-3; the 2-D group BN (the LC head's ``final_bn``) 1e-5 of the largest;
 the dense test's loss 1e-4 relative, top-1, top-5 and the confusion
-matrix equal.
+matrix equal.  The fused stem over the 2-rank group (``layers.fused_stem``
+with ``group``, against ``dpc_tpu``'s ``fused_stem(axis_name=...)``):
+outputs 1e-5 and the gradients 2e-4 of the largest (tests/test_torch_stem.py's
+tolerances), the running statistics of its LC train mode 1e-5.
 """
 
 import contextlib
@@ -98,6 +101,8 @@ LAYOUTS = {
 NCE_SHAPE = (8, 3, 2, 2, 16)   # pred, gt: [B, P, S, S, D] over data=2
 BN_SHAPE = (8, 2, 3, 3, 8)     # channels-last x of the group BN, 4 ranks
 BN2_SHAPE = (8, 16)            # the LC head's [B, D] features, 4 ranks
+STEM_X = (4, 2, 16, 16, 3)     # the fused stem's input, 2 ranks
+STEM_C = 8
 CLASSES, FT_WD = 11, 1e-3
 # the LC layouts: name: (ranks, model axis)
 FT_LAYOUTS = {"ft_data2": (2, 1), "ft_data2_model2": (4, 2)}
@@ -129,7 +134,28 @@ def _inputs():
             "bn2_ct": lc_rng.normal(size=BN2_SHAPE).astype(np.float32),
             "bn2_w": lc_rng.uniform(0.5, 1.5, size=BN2_SHAPE[-1]).astype(
                 np.float32),
-            "bn2_b": lc_rng.normal(size=BN2_SHAPE[-1]).astype(np.float32)}
+            "bn2_b": lc_rng.normal(size=BN2_SHAPE[-1]).astype(np.float32),
+            **_stem_inputs()}
+
+
+def _stem_inputs() -> dict:
+    """The fused stem's case: channels with γ < 0 and a γ = 0 channel with
+    β = 0.7 (``TestFusedStem``'s), running statistics for its LC mode."""
+    rng = np.random.default_rng(30)
+    gamma = rng.uniform(0.5, 1.5, STEM_C).astype(np.float32)
+    gamma[::3] *= -1.0
+    gamma[1] = 0.0
+    beta = rng.normal(size=STEM_C).astype(np.float32)
+    beta[1] = 0.7
+    return {
+        "stem_w": (rng.normal(size=(1, 7, 7, 3, STEM_C)) * 0.1).astype(
+            np.float32),
+        "stem_gamma": gamma, "stem_beta": beta,
+        "stem_x": rng.normal(size=STEM_X).astype(np.float32),
+        "stem_ct": rng.normal(size=(*STEM_X[:2], 4, 4, STEM_C)).astype(
+            np.float32),
+        "stem_mean": (rng.normal(size=STEM_C) * 0.3).astype(np.float32),
+        "stem_var": rng.uniform(0.5, 2.0, STEM_C).astype(np.float32)}
 
 
 # ---------------------------------------------------------------------------
@@ -258,6 +284,44 @@ def _port_bn2d(mesh, inp: dict) -> dict:
             "running": (bn.running_mean.numpy(), bn.running_var.numpy())}
 
 
+def _port_stem(mesh, inp: dict) -> dict:
+    """The fused stem with its statistics over the 2 ranks: outputs and
+    gradients of ``sum(y·ct)``, and the running statistics of its LC
+    train mode."""
+    per = STEM_X[0] // mesh.size
+    rows = slice(mesh.rank * per, (mesh.rank + 1) * per)
+    conv = torch.nn.Conv3d(3, STEM_C, (1, 7, 7), (1, 2, 2), (0, 3, 3),
+                           bias=False)
+    out = {}
+    for track in (False, True):
+        bn = layers.batchnorm3d(STEM_C, track_running_stats=track)
+        with torch.no_grad():
+            conv.weight.copy_(torch.from_numpy(inp["stem_w"]).permute(
+                4, 3, 0, 1, 2))
+            bn.weight.copy_(torch.from_numpy(inp["stem_gamma"]))
+            bn.bias.copy_(torch.from_numpy(inp["stem_beta"]))
+            if track:
+                bn.running_mean.copy_(torch.from_numpy(inp["stem_mean"]))
+                bn.running_var.copy_(torch.from_numpy(inp["stem_var"]))
+        x = torch.tensor(inp["stem_x"][rows]).permute(0, 4, 1, 2, 3)
+        if track:
+            with torch.no_grad():
+                layers.fused_stem(conv, bn, x, group=mesh.world_group)
+            out["running"] = (bn.running_mean.numpy(),
+                              bn.running_var.numpy())
+            continue
+        x.requires_grad_(True)
+        conv.zero_grad()
+        y = layers.fused_stem(conv, bn, x, group=mesh.world_group)
+        y = y.permute(0, 2, 3, 4, 1)
+        (y * torch.from_numpy(inp["stem_ct"][rows])).sum().backward()
+        out.update(y=y.detach().numpy(),
+                   dx=x.grad.permute(0, 2, 3, 4, 1).numpy(),
+                   dw=conv.weight.grad.permute(2, 3, 4, 1, 0).numpy(),
+                   dgamma=bn.weight.grad.numpy(), dbeta=bn.bias.grad.numpy())
+    return out
+
+
 def _read_test(exp_dir: str) -> dict:
     """top-5 from ``test_log.md`` and the confusion matrix (either
     package's run_test writes both)."""
@@ -329,6 +393,7 @@ def _port_job(rank: int, tmp: str, inp: dict) -> dict:
         out["eval"] = _port_eval(mesh, tmp, inp["x"])
         out["ft_eval"] = _port_ft_eval(mesh, tmp, inp)
     else:
+        out["stem"] = _port_stem(mesh, inp)
         out["test"] = _port_test(mesh, tmp)
     for name, (n, _, _) in LAYOUTS.items():
         if n == world:
@@ -466,6 +531,37 @@ def _jax_test(lparams, lstate, tmp: str) -> dict:
             "confusion": mats[0]}
 
 
+def _jax_stem(inp) -> dict:
+    """dpc_tpu's ``fused_stem`` with ``axis_name`` over 2 devices: outputs,
+    the per-device gradients, and its LC train mode's running
+    statistics."""
+    mesh = jax_mesh.make_mesh(2)
+    conv = {"w": jnp.asarray(inp["stem_w"])}
+    bn = {"scale": jnp.asarray(inp["stem_gamma"]),
+          "bias": jnp.asarray(inp["stem_beta"])}
+    state = {"mean": jnp.asarray(inp["stem_mean"]),
+             "var": jnp.asarray(inp["stem_var"])}
+
+    def body(x, cp, bp, ct):
+        def f(x, cp, bp):
+            y, _ = jax_layers.fused_stem(cp, bp, x, axis_name="data")
+            return jnp.sum(y * ct), y
+        (_, y), (dx, dc, db) = jax.value_and_grad(
+            f, argnums=(0, 1, 2), has_aux=True)(x, cp, bp)
+        _, new = jax_layers.fused_stem(cp, bp, x, state=state, train=True,
+                                       axis_name="data")
+        return (y, dx, dc["w"][None], db["scale"][None], db["bias"][None],
+                new["mean"], new["var"])
+
+    y, dx, dw, dg, dbeta, mean, var = jax.jit(jax.shard_map(
+        body, mesh=mesh, in_specs=(P("data"), P(), P(), P("data")),
+        out_specs=(P("data"),) * 5 + (P(), P()), check_vma=False))(
+        jnp.asarray(inp["stem_x"]), conv, bn, jnp.asarray(inp["stem_ct"]))
+    return {"y": np.asarray(y), "dx": np.asarray(dx), "dw": np.asarray(dw),
+            "dgamma": np.asarray(dg), "dbeta": np.asarray(dbeta),
+            "running": (np.asarray(mean), np.asarray(var))}
+
+
 def _jax_bn2d(inp) -> dict:
     """dpc_tpu's ``layers.batchnorm`` with ``axis_name`` and running
     statistics on a 2-D input over 4 devices: outputs, gradients and the
@@ -527,7 +623,8 @@ def runs(tmp_path_factory):
         Path(tmp, "ready").touch()  # the ranks wait for the weights
     ref = {"steps": _jax_steps(jparams, inp["x"]), "nce": _jax_nce(inp),
            "bn": _jax_bn(inp), "ft": _jax_finetune(lparams, lstate, inp),
-           "test": _jax_test(lparams, lstate, tmp), "bn2d": _jax_bn2d(inp)}
+           "test": _jax_test(lparams, lstate, tmp), "bn2d": _jax_bn2d(inp),
+           "stem": _jax_stem(inp)}
     for t in threads:
         t.join(timeout=600)
         assert not t.is_alive(), "a rank job did not finish"
@@ -767,6 +864,27 @@ def test_group_batchnorm_2d_matches_dpc_tpu(runs):
         assert _rel(got["dx"], want["dx"][rows]) <= 1e-5
         assert _rel(got["dw"], want["dw"][r]) <= 1e-5
         assert _rel(got["db"], want["db"][r]) <= 1e-5
+        for g, w in zip(got["running"], want["running"]):
+            assert _rel(g, w) <= 1e-5
+
+
+def test_fused_stem_over_the_group_matches_dpc_tpu(runs):
+    """``layers.fused_stem`` with its statistics over the 2-rank group
+    (the ``bn_group`` of a cross-replica step) against ``dpc_tpu``'s
+    ``fused_stem(axis_name="data")`` under ``shard_map``: outputs, the
+    gradients of x, the conv weight, γ (its γ = 0 channel included) and
+    β on each rank, and the EMA of its LC train mode over the global
+    count."""
+    want = runs["ref"]["stem"]
+    per = STEM_X[0] // 2
+    for r, res in enumerate(runs["port"][2]):
+        got = res["stem"]
+        rows = slice(r * per, (r + 1) * per)
+        assert _rel(got["y"], want["y"][rows]) <= 1e-5
+        assert _rel(got["dx"], want["dx"][rows]) <= 2e-4
+        for k in ("dw", "dgamma", "dbeta"):
+            assert _rel(got[k], want[k][r]) <= 2e-4, k
+        assert abs(float(got["dgamma"][1])) > 1e-3
         for g, w in zip(got["running"], want["running"]):
             assert _rel(g, w) <= 1e-5
 
