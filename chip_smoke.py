@@ -30,7 +30,10 @@ Phases, each printing its facts before the next starts:
               bf16 train step (gru_impl="pallas", nce_impl="fused",
               stem_impl and stem pool "auto"): 2 warm-up and 10 timed
               steps, with the kernels' launch counts read around the timed
-              steps; then the same step with nce_impl="xla", and with
+              steps; nce.dense_score_6d and nce.mask_code_stats of one
+              forward's pred/gt ([3072, 3072] f32) against the same
+              functions on CPU copies within 1e-5; then the same step with
+              nce_impl="xla", and with
               gru_impl="scan" (the per-step plain recurrence), in turns
               with it; the step with stem_impl "unfused" and "fused" in
               turns, each one's peak memory and launches (the fused stem:
@@ -58,7 +61,12 @@ Phases, each printing its facts before the next starts:
               plus val, then --test random on a few synthetic videos
   6. frames   both CLIs on a UCF-shaped tree of 320x240 JPEGs written with
               the port's encoder (16 videos of 150 frames, 640 train
-              rows): with the host recipe, the pretrain flagship for 2
+              rows), whose split CSVs are rewritten by the port's offline
+              toolkit (python -m dpc_tpu_torch.data.preprocess csv-ucf and
+              classind in subprocesses, from official-format UCF lists of
+              the tree's videos; rows and labels held against the tree's;
+              its OpenCV extract is not run): with the host recipe, the
+              pretrain flagship for 2
               epochs of 2 steps with val, epoch and step checkpoints; a
               mid-epoch resume from a step file alone and an epoch
               resume, each step's loss within 1e-3 of the uninterrupted
@@ -146,6 +154,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import importlib.util
 import io
 import json
 import math
@@ -1146,6 +1155,7 @@ def phase_step(profile: str | None) -> dict:
     log(f"[step] losses {losses}")
     log(f"[step] top1 {top1}")
     expect(all(math.isfinite(v) for v in losses), f"non-finite loss {losses}")
+    check_nce_analysis(model, cfg, x)
     _profile(lambda: step(x, gen), profile, "pretrain R18-128 B=64 bf16")
     _compare_paths(cfg, tcfg, model, step, x, gen)
     stems = _stem_turns("step", model.backbone,
@@ -1160,6 +1170,49 @@ def phase_step(profile: str | None) -> dict:
             "fused_stem": fused_stem,
             "clips_per_s": n_steps * batch / dt,
             "ms_per_step": 1e3 * dt / n_steps}
+
+
+def check_nce_analysis(model, cfg, x) -> None:
+    """``nce.dense_score_6d`` and ``nce.mask_code_stats`` of one flagship
+    forward's pred and gt (eval mode, under the eval step's bf16 autocast)
+    on the card, against the same functions on CPU copies of pred and gt:
+    max |card - CPU| / max |CPU| within TOL_VALUE for the 6-D score and for
+    the four means, with f32 matmul (no TF32) as ``dpc_tpu`` scores.  The
+    means are logged, not ordered: the model is at init."""
+    import torch
+    from dpc_tpu_torch.models import dpc
+    from dpc_tpu_torch.ops import nce
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bf16 = cfg.compute_dtype == "bfloat16"
+    try:
+        with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16,
+                                             enabled=bf16):
+            pred, gt = dpc.predict(model, x, cfg=cfg, train=False)
+        b, p, s = pred.shape[:3]
+        mask = nce.nce_mask(b, p, s * s)
+        score = nce.dense_score_6d(pred, gt)
+        stats = nce.mask_code_stats(score, mask)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    cpu_score = nce.dense_score_6d(pred.cpu(), gt.cpu())
+    cpu_stats = nce.mask_code_stats(cpu_score, mask)
+    expect(tuple(score.shape) == (b, p, s * s, b, p, s * s)
+           and score.dtype == torch.float32
+           and bool(torch.isfinite(score).all()),
+           f"dense_score_6d gave {tuple(score.shape)} {score.dtype}")
+    err_score = rel_err(score.cpu(), cpu_score)
+    err_means = rel_err(torch.stack([v.cpu() for v in stats.values()]),
+                        torch.stack(list(cpu_stats.values())))
+    means = {k: float(v) for k, v in stats.items()}
+    log(f"[step] dense_score_6d {tuple(score.shape)} and mask_code_stats "
+        f"of one flagship forward on the card against the CPU: score "
+        f"{err_score:.2e}, means {err_means:.2e} (tol {TOL_VALUE}); means "
+        f"{means}")
+    expect(err_score <= TOL_VALUE and err_means <= TOL_VALUE,
+           f"the NCE analysis helpers on the card are off the CPU's: "
+           f"score {err_score:.2e}, means {err_means:.2e}")
 
 
 def _stem_turns(what: str, bb, run, batch: int, n_steps: int = 5,
@@ -2137,6 +2190,68 @@ def _frames_device_augment(tmp: Path, data, pre_args, lc_args, paths,
     return rates
 
 
+def preprocess_splits(base: Path, num_frames: int) -> None:
+    """Replace the frame tree's split CSVs under ``base`` with ones the
+    port's offline toolkit writes.  The tree's videos go into official UCF
+    lists (``trainlist01.txt`` with labels, ``testlist01.txt`` without),
+    in the order and multiplicity of the rows of its split CSVs; then
+    ``python -m dpc_tpu_torch.data.preprocess csv-ucf`` and ``classind``
+    run in subprocesses.  Their rows must equal the tree's (the same dirs,
+    ``num_frames`` frames each), and the written ``classInd.txt`` must give
+    each class dir of the tree its label.  The tree keeps its own 101-name
+    ``classInd.txt``.  The toolkit's ``extract`` is not run: it decodes
+    video with OpenCV, which this script does not import."""
+    from dpc_tpu_torch.data import video_dataset
+
+    frame_root = base / "frame"
+    lists, out = base / "ucfTrainTestlist", base / "preprocessed"
+    lists.mkdir()
+    labels = video_dataset.read_class_index(str(base / "classInd.txt"))
+    want = {}
+    for part, listname in (("train", "trainlist01.txt"),
+                           ("test", "testlist01.txt")):
+        want[part] = video_dataset.read_split_csv(
+            str(base / f"{part}_split01.csv"))
+        lines = []
+        for vdir, _ in want[part]:
+            rel = Path(vdir).relative_to(frame_root)
+            label = f" {labels[rel.parts[0]] + 1}" if part == "train" else ""
+            lines.append(f"{rel.as_posix()}.avi{label}\n")
+        (lists / listname).write_text("".join(lines))
+    t0 = time.perf_counter()
+    for argv in (["csv-ucf", str(lists), str(frame_root), str(out),
+                  "--split", "1"],
+                 ["classind", str(frame_root), str(out / "classInd.txt")]):
+        res = subprocess.run(
+            [sys.executable, "-m", "dpc_tpu_torch.data.preprocess", *argv],
+            cwd=ROOT, capture_output=True, text=True, timeout=300)
+        expect(res.returncode == 0,
+               f"preprocess {argv[0]} exited {res.returncode}: "
+               f"{res.stderr[-2000:]}")
+        log(f"[frames] python -m dpc_tpu_torch.data.preprocess {argv[0]}: "
+            f"{' / '.join(res.stdout.strip().splitlines()) or 'done'}")
+    for part in ("train", "test"):
+        got = video_dataset.read_split_csv(str(out / f"{part}_split01.csv"))
+        expect(got == want[part] and all(n == num_frames for _, n in got),
+               f"the toolkit's {part} CSV ({len(got)} rows) differs from "
+               f"the tree's ({len(want[part])} rows)")
+    got_labels = video_dataset.read_class_index(str(out / "classInd.txt"))
+    classes = sorted(p.name for p in frame_root.iterdir())
+    expect(sorted(got_labels) == classes
+           and all(got_labels[c] == labels[c] for c in classes),
+           f"the toolkit's classInd.txt {got_labels} gives the tree's "
+           f"classes other labels")
+    for part in ("train", "test"):
+        shutil.copy(out / f"{part}_split01.csv", base / f"{part}_split01.csv")
+    opencv = importlib.util.find_spec("cv2") is not None
+    log(f"[frames] split CSVs from the port's preprocess ({len(want['train'])}"
+        f" train / {len(want['test'])} test rows, {len(classes)} classes "
+        f"labelled as the tree's) in {time.perf_counter() - t0:.1f} s; the "
+        "CLIs below read them; the toolkit's extract is not run here "
+        f"(OpenCV {'installed' if opencv else 'not installed'} on this "
+        "machine; this script imports none)")
+
+
 def phase_frames(pre_args=FRAMES_PRETRAIN, lc_args=FRAMES_LC,
                  tree_kw=FRAMES_TREE, device: str = "cuda") -> dict:
     """Both CLIs on a UCF-shaped JPEG tree written with the port's encoder.
@@ -2170,12 +2285,13 @@ def phase_frames(pre_args=FRAMES_PRETRAIN, lc_args=FRAMES_LC,
         root = write_frame_tree(str(tmp / "data"), workers=workers,
                                 **tree_kw)
         base = Path(root) / "ucf101"
-        rows = (base / "test_split01.csv").read_text().splitlines()
-        (base / "test_split02.csv").write_text("\n".join(rows[:16]) + "\n")
         n_frames = tree_kw["num_videos"] * tree_kw["num_frames"]
         log(f"[frames] wrote {n_frames} JPEG frames of "
             f"{tree_kw['width']}x{tree_kw['height']} in "
             f"{time.perf_counter() - t0:.1f} s")
+        preprocess_splits(base, tree_kw["num_frames"])
+        rows = (base / "test_split01.csv").read_text().splitlines()
+        (base / "test_split02.csv").write_text("\n".join(rows[:16]) + "\n")
         # the codec against the frames it was given (video 0)
         first = sorted((base / "frame").glob("*/*"))[0]
         src = render_frames(0, np.arange(3), tree_kw["height"],

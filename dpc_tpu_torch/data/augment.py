@@ -15,8 +15,10 @@ forward, float32 back).  The bilinear blend and the float32 hue sector may
 round one grey level the other way.  Also ``FiveCrop``, ``PadTo`` and
 ``PerCrop`` (the five-crop dense test) and ``HostScaleCrop``, the host half
 of ``--device_augment``, which the JPEG codec can execute inside the decode
-(``native.decode_jpeg_batch_scale_crop``).  Not ported: ``RandomRotation``
-(no recipe uses it).
+(``native.decode_jpeg_batch_scale_crop``).  ``RandomRotation`` and
+``RandomCrop``'s optical-flow proposals, which no recipe uses, are here
+too: the rotation is OpenCV's ``warpAffine`` written as a float64
+inverse-map bilinear warp, within one grey level of it.
 """
 
 from __future__ import annotations
@@ -126,18 +128,36 @@ class CenterCrop:
 
 class RandomCrop:
     """Random crop: one window for the clip (``consistent``) or one per
-    frame.  The reference's optical-flow proposals are not ported: no
-    recipe passes a flow map."""
+    frame.  With a ``flowmap`` (``[T, H, W, ...]``, per-frame windows
+    only), each frame draws ``num_proposals`` windows and keeps the first
+    with the largest ``|mean(flow)|`` (the reference's optical-flow
+    proposals, ``augmentation.py:126-137``)."""
 
-    def __init__(self, size, consistent: bool = True):
+    def __init__(self, size, consistent: bool = True, num_proposals: int = 3):
         self.size = (size, size) if isinstance(size, (int, float)) else size
         self.consistent = consistent
+        self.num_proposals = num_proposals
 
-    def __call__(self, clip, rng):
+    def __call__(self, clip, rng, flowmap=None):
         t, h, w, c = clip.shape
         th, tw = self.size
         if w == tw and h == th:
             return clip
+        if flowmap is not None:
+            assert not self.consistent
+            out = np.empty((t, th, tw, c), clip.dtype)
+            for i in range(t):
+                best, best_mag = (0, 0), -1.0
+                for _ in range(self.num_proposals):
+                    x = int(rng.integers(0, w - tw + 1))
+                    y = int(rng.integers(0, h - th + 1))
+                    mag = abs(float(
+                        np.mean(flowmap[i, y: y + th, x: x + tw])))
+                    if mag > best_mag:
+                        best, best_mag = (y, x), mag
+                out[i] = clip[i, best[0]: best[0] + th,
+                              best[1]: best[1] + tw]
+            return out
         if self.consistent:
             x1 = int(rng.integers(0, w - tw + 1))
             y1 = int(rng.integers(0, h - th + 1))
@@ -478,6 +498,75 @@ class ColorJitter:
                 if idx:
                     factors = np.array([plans[i][k][1] for i in idx])
                     out[idx] = fn(out[idx], factors)
+        return out
+
+
+def _rotate_expand(clip: np.ndarray, deg: float) -> np.ndarray:
+    """Every frame of ``clip [T, H, W, C]`` rotated by ``deg`` (counter-
+    clockwise) on its expanded canvas: ``cv2.warpAffine``'s inverse map,
+    bilinear over four taps, taps outside the frame reading 0
+    (``BORDER_CONSTANT``), rounded to uint8."""
+    h, w = clip.shape[1:3]
+    # cv2.getRotationMatrix2D((w/2, h/2), deg, 1.0) in float64, the canvas
+    # grown to hold the whole rotated frame
+    a = deg * math.pi / 180
+    alpha, beta = math.cos(a), math.sin(a)
+    cx, cy = w / 2, h / 2
+    m = np.array([[alpha, beta, (1 - alpha) * cx - beta * cy],
+                  [-beta, alpha, beta * cx + (1 - alpha) * cy]])
+    cos, sin = abs(m[0, 0]), abs(m[0, 1])
+    nw = int(h * sin + w * cos)
+    nh = int(h * cos + w * sin)
+    m[0, 2] += (nw - w) / 2
+    m[1, 2] += (nh - h) / 2
+    inv = np.linalg.inv(np.vstack([m, [0.0, 0.0, 1.0]]))[:2]
+    ys, xs = np.mgrid[0:nh, 0:nw].astype(np.float64)
+    sx = inv[0, 0] * xs + inv[0, 1] * ys + inv[0, 2]
+    sy = inv[1, 0] * xs + inv[1, 1] * ys + inv[1, 2]
+    x0, y0 = np.floor(sx), np.floor(sy)
+    fx, fy = (sx - x0)[..., None], (sy - y0)[..., None]
+    x0, y0 = x0.astype(np.int64), y0.astype(np.int64)
+    # a one-pixel zero border: a tap outside the frame lands on it
+    pad = np.pad(clip, ((0, 0), (1, 1), (1, 1), (0, 0)))
+    xa, xb = np.clip(x0, -1, w) + 1, np.clip(x0 + 1, -1, w) + 1
+    ya, yb = np.clip(y0, -1, h) + 1, np.clip(y0 + 1, -1, h) + 1
+    out = pad[:, ya, xa] * ((1 - fx) * (1 - fy))
+    out += pad[:, ya, xb] * (fx * (1 - fy))
+    out += pad[:, yb, xa] * ((1 - fx) * fy)
+    out += pad[:, yb, xb] * (fx * fy)
+    if clip.dtype == np.uint8:
+        return np.clip(np.rint(out), 0, 255).astype(np.uint8)
+    return out.astype(clip.dtype)
+
+
+class RandomRotation:
+    """Rotate by an integer degree in ``[-degree, degree)``, the canvas
+    expanded to hold the whole frame (reference ``:353-366``), p-gated.
+    Per-frame degrees (``consistent=False``) give canvases of different
+    sizes; each frame is centred on the largest (PARITY.md #16)."""
+
+    def __init__(self, consistent: bool = True, degree: float = 15,
+                 p: float = 1.0):
+        self.consistent = consistent
+        self.degree = degree
+        self.p = p
+
+    def __call__(self, clip, rng):
+        if rng.random() >= self.p:
+            return clip
+        if self.consistent:
+            deg = float(rng.integers(-self.degree, self.degree))
+            return _rotate_expand(clip, deg)
+        frames = [_rotate_expand(clip[i:i + 1], float(
+            rng.integers(-self.degree, self.degree)))[0]
+            for i in range(clip.shape[0])]
+        hm = max(f.shape[0] for f in frames)
+        wm = max(f.shape[1] for f in frames)
+        out = np.zeros((len(frames), hm, wm) + clip.shape[3:], clip.dtype)
+        for i, f in enumerate(frames):
+            y0 = (hm - f.shape[0]) // 2
+            x0 = (wm - f.shape[1]) // 2
+            out[i, y0:y0 + f.shape[0], x0:x0 + f.shape[1]] = f
         return out
 
 

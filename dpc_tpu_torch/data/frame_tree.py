@@ -1,7 +1,6 @@
-"""Write a frame tree in the reference's layout from synthetic videos (the
-port's counterpart of the frame extraction in
-``dpc_tpu/data/preprocess.py:39 extract_video``, for tests and smoke runs
-that have no real videos).
+"""Write a frame tree in the reference's layout from synthetic videos, for
+tests and smoke runs that have no real videos (real videos go through
+``data/preprocess.py``'s ``extract``, which needs OpenCV).
 
 Each video is rendered as ``data/synthetic.py`` renders it (a blob moving
 at constant velocity over a smooth background, the class set by the

@@ -55,6 +55,15 @@ def dense_score(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
     return pred.reshape(-1, d) @ gt.reshape(-1, d).t()
 
 
+def dense_score_6d(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+    """The score in f32 as the 6-D ``[B, P, S², B, P, S²]`` of
+    ``dpc/model_3d.py:83`` (``dpc_tpu`` scores in f32 at full precision;
+    on the card the product is full f32 unless the caller allowed TF32)."""
+    b, p, s = pred.shape[:3]
+    return dense_score(pred.float(), gt.float()).reshape(
+        b, p, s * s, b, p, s * s)
+
+
 def nce_loss(score: torch.Tensor, targets: torch.Tensor
              ) -> tuple[torch.Tensor, dict]:
     """Softmax cross-entropy over ``score [R, C]`` and top-1/3/5."""
@@ -108,3 +117,19 @@ def pick_nce_impl(n_rows: int, n_cols: int, d: int, device: torch.device,
     if score_bytes > budget_frac * device_memory_bytes(device):
         return "fused"
     return "fused" if device.type == "cuda" and d <= FLASH_MAX_D else "xla"
+
+
+def mask_code_stats(score: torch.Tensor, mask: np.ndarray) -> dict:
+    """Mean score under each semantic code of ``mask`` (``nce_mask``'s, any
+    shape with the score's element count), a 0-d tensor each; an absent
+    code's mean is 0.  The analysis view the reference's finer mask codes
+    exist for (only code 1 is consumed in training)."""
+    flat_score = score.reshape(-1)
+    flat_mask = torch.as_tensor(mask.reshape(-1), device=score.device)
+    out = {}
+    for name, code in (("pos", POSITIVE), ("temporal_neg", TEMPORAL_NEG),
+                       ("spatial_neg", SPATIAL_NEG), ("easy_neg", EASY_NEG)):
+        sel = flat_mask == code
+        denom = sel.sum().clamp(min=1)
+        out[name] = torch.where(sel, flat_score, 0.0).sum() / denom
+    return out

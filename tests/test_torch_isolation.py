@@ -26,10 +26,12 @@ leaked = sorted(k for k in sys.modules
                 if k == "dpc_tpu" or k.startswith("dpc_tpu."))
 assert not leaked, leaked
 # the LC slice's modules, the pool kernels' wrapper without nvcc, the
-# frame pipeline, checkpoints and shared loop, and the bench, profiling
-# and registry tools (tensorboardX is imported only inside a CLI's run)
+# frame pipeline, checkpoints and shared loop, the bench, profiling and
+# registry tools (tensorboardX is imported only inside a CLI's run), and
+# the offline toolkit (OpenCV is imported only inside the frame extraction)
 for name in ("models.lc", "ops.maxpool_cuda", "train.finetune_step",
              "train.evaluate", "train.metrics", "native", "data.augment",
+             "data.preprocess",
              "data.video_dataset", "data.frame_tree", "data.device_augment",
              "core.checkpoint", "train.loop", "bench", "train.bench_loop",
              "train.bench_breakdown", "train.bench_input", "utils.profiling",

@@ -304,3 +304,38 @@ def test_split_backward_partials_match_plain(r, c, d, splits_r, splits_c):
     dc = sweep(cols, rows, splits_c, p_cols)
     torch.testing.assert_close(dr, want_dr, rtol=1e-5, atol=1e-7)
     torch.testing.assert_close(dc, want_dc, rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("pred_step", [3, 1])   # 1: no temporal negative
+def test_dense_score_6d_and_mask_code_stats_match_jax(pred_step):
+    """The analysis helpers at B=4, 4x4 cells, D=8, within 1e-5 of
+    dpc_tpu's (the means as max |d| / max |mean|); with pred_step 1 the
+    mask holds no temporal negative, whose mean is then 0."""
+    rng = np.random.default_rng(pred_step)
+    pred = rng.normal(size=(4, pred_step, 4, 4, 8)).astype(np.float32)
+    gt = rng.normal(size=(4, pred_step, 4, 4, 8)).astype(np.float32)
+    mask = nce.nce_mask(4, pred_step, 16)
+    want6 = np.asarray(jax_nce.dense_score_6d(jnp.asarray(pred),
+                                              jnp.asarray(gt)))
+    got6 = nce.dense_score_6d(torch.tensor(pred), torch.tensor(gt))
+    assert got6.shape == want6.shape == (4, pred_step, 16, 4, pred_step, 16)
+    assert got6.dtype == torch.float32
+    np.testing.assert_allclose(got6.numpy(), want6, rtol=1e-5,
+                               atol=1e-5 * np.abs(want6).max())
+    # bf16 inputs are scored in f32
+    assert nce.dense_score_6d(torch.tensor(pred).bfloat16(),
+                              torch.tensor(gt).bfloat16()).dtype \
+        == torch.float32
+
+    got = nce.mask_code_stats(got6, mask)
+    want = jax_nce.mask_code_stats(jnp.asarray(want6), mask)
+    assert list(got) == list(want)
+    g = np.array([float(v) for v in got.values()])
+    w = np.array([float(v) for v in want.values()])
+    assert all(v.dim() == 0 for v in got.values())
+    assert np.abs(g - w).max() <= 1e-5 * np.abs(w).max()
+    if pred_step == 1:
+        assert float(got["temporal_neg"]) == 0.0
+    for name, code in (("pos", nce.POSITIVE), ("easy_neg", nce.EASY_NEG)):
+        np.testing.assert_allclose(float(got[name]),
+                                   want6[mask == code].mean(), rtol=1e-5)
