@@ -24,6 +24,7 @@ from torch import nn
 
 from dpc_tpu_torch.models import layers as L
 from dpc_tpu_torch.ops import convgru_cuda
+from dpc_tpu_torch.utils import profiling
 
 
 class ConvGRUCell(nn.Module):
@@ -91,22 +92,23 @@ def apply_convgru(agg: ConvGRU, x: torch.Tensor,
 
     last_states = []
     cur = x
-    for li, cell in enumerate(cells):
-        m = layer_masks(li)
-        if impl == "pallas" and agg.kernel_size == 1:
-            cur, h = convgru_cuda.fused_convgru_layer(
-                cell, cur, hidden[li].to(cur.dtype), m)
-        else:
-            h = hidden[li]
-            outs = []
-            for step in range(t):
-                h = cell(cur[:, step], h)
-                if m is not None:
-                    h = h * m[step].reshape(b, hgt, wid, ch).to(h.dtype)
-                outs.append(h)
-            cur = torch.stack(outs, dim=1)
-        last_states.append(h)
-    return cur, torch.stack(last_states, dim=1)
+    with profiling.span("dpc.agg"):
+        for li, cell in enumerate(cells):
+            m = layer_masks(li)
+            if impl == "pallas" and agg.kernel_size == 1:
+                cur, h = convgru_cuda.fused_convgru_layer(
+                    cell, cur, hidden[li].to(cur.dtype), m)
+            else:
+                h = hidden[li]
+                outs = []
+                for step in range(t):
+                    h = cell(cur[:, step], h)
+                    if m is not None:
+                        h = h * m[step].reshape(b, hgt, wid, ch).to(h.dtype)
+                    outs.append(h)
+                cur = torch.stack(outs, dim=1)
+            last_states.append(h)
+        return cur, torch.stack(last_states, dim=1)
 
 
 def convgru_single_step(agg: ConvGRU, x: torch.Tensor,

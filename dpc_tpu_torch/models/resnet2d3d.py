@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from dpc_tpu_torch.models import layers as L
+from dpc_tpu_torch.utils import profiling
 
 # (block kinds per stage, blocks per stage)
 ARCH: dict[str, tuple[tuple[str, str, str, str], tuple[int, int, int, int]]] = {
@@ -203,7 +204,11 @@ class ResNet2d3d(nn.Module):
         folded into the stem conv.  ``bn_group``: the process group of the
         BN statistics (None: this rank's batch)."""
         # NDHWC → NCDHW is a view with channels_last_3d strides
-        h = self.stem(x.permute(0, 4, 1, 2, 3), input_norm, bn_group)
+        with profiling.span("dpc.backbone.stem"):
+            h = self.stem(x.permute(0, 4, 1, 2, 3), input_norm, bn_group)
+        # the stem is the first layer: its backward is the backward's last
+        # work, from this mark to the end
+        h = profiling.mark_backward(h, "dpc.backbone.stem.backward")
         for si in range(4):
             for block in getattr(self, f"layer{si + 1}"):
                 h = block(h, bn_group)

@@ -25,6 +25,7 @@ import torch
 from torch import nn
 
 from dpc_tpu_torch.ops import _build
+from dpc_tpu_torch.utils import profiling
 
 
 def pack_weights(cell: nn.Module) -> tuple[torch.Tensor, ...]:
@@ -149,8 +150,9 @@ class _FusedCore(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_out):
         x_seq, h0, out, *weights, masks = ctx.saved_tensors
-        return (*convgru_backward(x_seq, h0, out, tuple(weights), masks,
-                                  g_out), None)
+        with profiling.span("dpc.agg.backward"):
+            return (*convgru_backward(x_seq, h0, out, tuple(weights), masks,
+                                      g_out), None)
 
 
 def fused_core(x_seq, h0, wzr_x, wzr_h, b_zr, wo_x, wo_h, b_o, masks):

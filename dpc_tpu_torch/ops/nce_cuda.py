@@ -26,6 +26,7 @@ from typing import Optional
 import torch
 
 from dpc_tpu_torch.ops import _build
+from dpc_tpu_torch.utils import profiling
 
 
 def nce_forward_plain(rows, cols, pos, targets):
@@ -107,11 +108,12 @@ class _LseRank(torch.autograd.Function):
     def backward(ctx, g_lse, g_pos, _g_rank):
         rows, cols, targets, lse = ctx.saved_tensors
         t = targets.long()
-        drows, dcols = nce_backward(rows, cols, lse, g_lse)
-        # positive-logit term: d(pos_i)/drows_i = cols[t_i], scattered
-        # onto the target columns for dcols
-        drows = drows + g_pos[:, None] * cols[t]
-        dcols = dcols.index_add(0, t, g_pos[:, None] * rows)
+        with profiling.span("dpc.nce.backward"):
+            drows, dcols = nce_backward(rows, cols, lse, g_lse)
+            # positive-logit term: d(pos_i)/drows_i = cols[t_i], scattered
+            # onto the target columns for dcols
+            drows = drows + g_pos[:, None] * cols[t]
+            dcols = dcols.index_add(0, t, g_pos[:, None] * rows)
         return drows, dcols, None
 
 
@@ -144,11 +146,12 @@ class _LseRankShard(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_lse, _g_rank):
         rows, cols, lse = ctx.saved_tensors
-        if ctx.plain:
-            drows, dcols = nce_backward_plain(rows, cols, lse, g_lse)
-        else:
-            drows, dcols = nce_backward(rows, cols, lse, g_lse,
-                                        count_as="nce_bwd_shard")
+        with profiling.span("dpc.nce.backward"):
+            if ctx.plain:
+                drows, dcols = nce_backward_plain(rows, cols, lse, g_lse)
+            else:
+                drows, dcols = nce_backward(rows, cols, lse, g_lse,
+                                            count_as="nce_bwd_shard")
         # pos enters only the rank count; its loss term is a gather outside
         # the kernel, differentiated there (_shard_bwd, nce_pallas.py:380)
         return drows, dcols, torch.zeros_like(lse), None, None

@@ -36,6 +36,7 @@ from dpc_tpu_torch.models import lc
 from dpc_tpu_torch.parallel import collectives as C
 from dpc_tpu_torch.parallel.mesh import Mesh, peer_rows
 from dpc_tpu_torch.train import optim
+from dpc_tpu_torch.utils import profiling
 
 
 class _ClipLayout:
@@ -157,33 +158,40 @@ def make_finetune_step(model_cfg: DPCConfig, eval_cfg: EvalConfig,
              lr_scale: float = 1.0,
              augment_gen: Optional[torch.Generator] = None) -> dict:
         if augment is not None:
-            batch = augment(batch, augment_gen)
+            with profiling.span("dpc.step.recipe"):
+                batch = augment(batch, augment_gen)
         optim.set_lr_scale(optimizer, lr_scale)
         optimizer.zero_grad(set_to_none=True)
-        if eval_cfg.remat:
-            gen_state = generator.get_state() if generator else None
+        with profiling.span("dpc.step.forward"):
+            if eval_cfg.remat:
+                gen_state = generator.get_state() if generator else None
 
-            def replay(b):
-                if generator is not None:
-                    generator.set_state(gen_state)
-                return forward(b, generator)
+                def replay(b):
+                    if generator is not None:
+                        generator.set_state(gen_state)
+                    return forward(b, generator)
 
-            logits = checkpoint.checkpoint(replay, batch, use_reentrant=False)
-            stats = {k: v.clone() for k, v in model.named_buffers()}
-        else:
-            logits = forward(batch, generator)
-        loss = softmax_xent(logits, labels)
-        loss.backward()
+                logits = checkpoint.checkpoint(replay, batch,
+                                               use_reentrant=False)
+                stats = {k: v.clone() for k, v in model.named_buffers()}
+            else:
+                logits = forward(batch, generator)
+        with profiling.span("dpc.step.loss"):
+            loss = softmax_xent(logits, labels)
+            metrics = _metrics(logits.detach(), labels)
+        with profiling.span("dpc.step.backward"):
+            loss.backward()
         if eval_cfg.remat:
             for k, v in model.named_buffers():
                 v.copy_(stats[k])
-        metrics = _metrics(logits.detach(), labels)
         if layout.world_group is not None:
             grads = [p.grad for p in params if p.grad is not None]
-            C.mean_flat_(grads + list(metrics.values())
-                         + list(lc.running_stats(model).values()),
-                         layout.world_group)
-        optimizer.step()
+            with profiling.span("dpc.step.allreduce"):
+                C.mean_flat_(grads + list(metrics.values())
+                             + list(lc.running_stats(model).values()),
+                             layout.world_group)
+        with profiling.span("dpc.step.optimizer"):
+            optimizer.step()
         return metrics
 
     return step
@@ -207,12 +215,17 @@ def make_finetune_eval_step(model_cfg: DPCConfig, eval_cfg: EvalConfig,
     def eval_step(batch: torch.Tensor, labels: torch.Tensor,
                   augment_gen: Optional[torch.Generator] = None) -> dict:
         if augment is not None:
-            batch = augment(batch, augment_gen)
-        with _autocast(model_cfg, device):
+            with profiling.span("dpc.step.recipe"):
+                batch = augment(batch, augment_gen)
+        with profiling.span("dpc.step.forward"), _autocast(model_cfg,
+                                                           device):
             logits, _, _ = lc.apply_lc(model, batch, cfg=model_cfg,
                                        train=False, input_norm=input_norm)
-        metrics = _metrics(logits[:, 0], labels)
-        C.mean_flat_(list(metrics.values()), layout.world_group)
+        with profiling.span("dpc.step.loss"):
+            metrics = _metrics(logits[:, 0], labels)
+        if layout.world_group is not None:
+            with profiling.span("dpc.step.allreduce"):
+                C.mean_flat_(list(metrics.values()), layout.world_group)
         return metrics
 
     return eval_step
@@ -236,10 +249,12 @@ def make_test_forward(model_cfg: DPCConfig, eval_cfg: EvalConfig,
     @torch.no_grad()
     def forward(windows: torch.Tensor) -> torch.Tensor:
         if eval_cfg.device_augment:
-            windows = device_augment.test_preprocess_batch(
-                windows, model_cfg.img_dim, test_crop,
-                five_crop=eval_cfg.five_crop, normalize_out=not fold)
-        with _autocast(model_cfg, device):
+            with profiling.span("dpc.step.recipe"):
+                windows = device_augment.test_preprocess_batch(
+                    windows, model_cfg.img_dim, test_crop,
+                    five_crop=eval_cfg.five_crop, normalize_out=not fold)
+        with profiling.span("dpc.step.forward"), _autocast(model_cfg,
+                                                           device):
             logits, _, _ = lc.apply_lc(model, windows, cfg=model_cfg,
                                        train=False, input_norm=input_norm)
         return logits[:, 0]

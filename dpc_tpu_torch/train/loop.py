@@ -24,6 +24,7 @@ import torch.distributed as dist
 
 from dpc_tpu_torch.data.video_dataset import count_fallbacks
 from dpc_tpu_torch.train.metrics import denormalize
+from dpc_tpu_torch.utils import profiling
 
 
 class PreemptionGuard:
@@ -147,8 +148,12 @@ class DeviceFeed:
 
     def __call__(self, batch):
         """A tensor or array, or a tuple of them."""
+        with profiling.span("dpc.feed.copy"):
+            return self._copy(batch)
+
+    def _copy(self, batch):
         if isinstance(batch, (tuple, list)):
-            return tuple(self(b) for b in batch)
+            return tuple(self._copy(b) for b in batch)
         t = batch if isinstance(batch, torch.Tensor) else \
             torch.from_numpy(np.ascontiguousarray(batch))
         if self.stream is None:
@@ -268,6 +273,10 @@ def run_epoch(dispatch, loader, meters, *, mode: str = "train",
     steps = 0
 
     def drain(entry):
+        with profiling.span("dpc.loop.drain"):
+            _drain(entry)
+
+    def _drain(entry):
         nonlocal tic
         p_idx, fetch, rows = entry
         metrics = fetch.get()
@@ -296,7 +305,9 @@ def run_epoch(dispatch, loader, meters, *, mode: str = "train",
             first_batch_fn(batch)
             first_batch_fn = None
         last_idx = idx
-        fetch = MetricsFetch(dispatch(idx, batch))
+        with profiling.span("dpc.loop.dispatch"):
+            out = dispatch(idx, batch)
+        fetch = MetricsFetch(out)
         steps += 1
         if pending is not None:
             drain(pending)

@@ -191,25 +191,31 @@ def make_pretrain_step(model_cfg: DPCConfig, train_cfg: TrainConfig,
              augment_gen: Optional[torch.Generator] = None) -> dict:
         layout.check_batch(batch)
         if augment is not None:
-            batch = augment(batch, augment_gen)
+            with profiling.span("dpc.step.recipe"):
+                batch = augment(batch, augment_gen)
         optimizer.zero_grad(set_to_none=True)
-        with torch.autocast(device.type, dtype=torch.bfloat16, enabled=bf16):
+        with profiling.span("dpc.step.forward"), torch.autocast(
+                device.type, dtype=torch.bfloat16, enabled=bf16):
             pred, gt = dpc.predict(model, batch, cfg=model_cfg, train=True,
                                    generator=generator,
                                    remat=train_cfg.remat,
                                    input_norm=input_norm,
                                    bn_group=layout.bn_group)
-        loss, metrics = loss_fn(pred, gt)
+        with profiling.span("dpc.step.loss"):
+            loss, metrics = loss_fn(pred, gt)
         if profiling.nan_checks_on():  # --debug_nans
             profiling.check_finite(loss)
-        loss.backward()
+        with profiling.span("dpc.step.backward"):
+            loss.backward()
         metrics = {"loss": loss.detach(), **metrics}
         if layout.mesh is not None:
             metrics = {k: metrics[k].clone() for k in METRICS}
             grads = [p.grad for p in params if p.grad is not None]
-            C.mean_flat_(grads + list(metrics.values()),
-                         layout.mesh.world_group)
-        optimizer.step()
+            with profiling.span("dpc.step.allreduce"):
+                C.mean_flat_(grads + list(metrics.values()),
+                             layout.mesh.world_group)
+        with profiling.span("dpc.step.optimizer"):
+            optimizer.step()
         return metrics
 
     return step
@@ -280,16 +286,20 @@ def make_eval_step(model_cfg: DPCConfig, train_cfg: TrainConfig,
                   augment_gen: Optional[torch.Generator] = None) -> dict:
         layout.check_batch(batch)
         if augment is not None:
-            batch = augment(batch, augment_gen)
-        with torch.autocast(device.type, dtype=torch.bfloat16, enabled=bf16):
+            with profiling.span("dpc.step.recipe"):
+                batch = augment(batch, augment_gen)
+        with profiling.span("dpc.step.forward"), torch.autocast(
+                device.type, dtype=torch.bfloat16, enabled=bf16):
             pred, gt = dpc.predict(model, batch, cfg=model_cfg, train=False,
                                    input_norm=input_norm,
                                    bn_group=layout.bn_group)
-        loss, metrics = loss_fn(pred, gt)
+        with profiling.span("dpc.step.loss"):
+            loss, metrics = loss_fn(pred, gt)
         metrics = {"loss": loss, **metrics}
         if layout.mesh is not None:
             metrics = {k: metrics[k].clone() for k in METRICS}
-            C.mean_flat_(list(metrics.values()), layout.mesh.world_group)
+            with profiling.span("dpc.step.allreduce"):
+                C.mean_flat_(list(metrics.values()), layout.mesh.world_group)
         return metrics
 
     return eval_step

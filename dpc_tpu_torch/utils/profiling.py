@@ -3,18 +3,23 @@
 
 * :func:`trace`: a ``torch.profiler`` over the CPU and the card around a
   block, written as a Chrome trace (``--profile`` of the pretrain CLI);
-* :class:`StepTimer`: step timing that waits for the card (PyTorch queues
-  CUDA work and returns, so a host clock alone times the enqueue);
+* :func:`span` and :func:`mark_backward`: the program's named ranges
+  (``dpc.*``) inside the step, the loop and the feed, recorded only while
+  a profiler records, on the profiler's own clock beside the device's
+  activity; with no profiler recording a span costs one flag check and
+  the mark adds nothing to the autograd graph;
 * :func:`enable_debug`: anomaly mode, which raises on the first NaN a
   backward function returns, and the finite-loss check the train step runs
   while it is on (``--debug_nans``);
 * :func:`device_busy` and :func:`kernels_by_op`: how a profile is read.
-  The busy share is defined here once: the device time of kernels, copies
-  and sets, without the GPU ranges of user annotations (the optimizer's
-  step, for one), whose kernels would count twice, over wall time.
+  The busy share is defined here once: the union of the intervals in
+  which a kernel, copy or set ran on any stream, without the GPU ranges of
+  user annotations, over wall time, so a copy or NCCL stream overlapping
+  the compute stream counts once and the share never passes 100%.
 
 ``dpc_tpu``'s ``enable_compilation_cache`` has no counterpart: it is JAX's
-compilation cache.
+compilation cache; nor its ``StepTimer``, whose per-step wait for the card
+would remove the overlap the epoch loop keeps.
 """
 
 from __future__ import annotations
@@ -24,7 +29,6 @@ import os
 import time
 from typing import Iterator, Optional
 
-import numpy as np
 import torch
 
 
@@ -58,6 +62,33 @@ def trace(log_dir: Optional[str], record_shapes: bool = False
         print(f"[profiling] trace written to {path}", flush=True)
 
 
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager that records the range ``name`` while a profiler
+    records (``torch.profiler.record_function``), and is a shared no-op
+    context otherwise.  The program's spans are named ``dpc.<layer>.<what>``
+    (PERF.md §3 lists them with the metrics that read them)."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
+
+
+def mark_backward(x: torch.Tensor, name: str) -> torch.Tensor:
+    """``x``, with a hook that records the zero-length range ``name`` when
+    its gradient is complete in the backward, while a profiler records
+    and ``x`` takes a gradient: the backward of what made ``x`` starts
+    there.  The hook adds no node to the graph and changes no gradient;
+    with no profiler recording nothing is registered."""
+    if torch.autograd._profiler_enabled() and x.requires_grad:
+        def hook(_grad):
+            with torch.profiler.record_function(name):
+                pass
+        x.register_hook(hook)
+    return x
+
+
 def device_events(prof: torch.profiler.profile) -> list:
     """The profile's device events by name (``key_averages``): kernels,
     copies and sets, without user-annotation ranges."""
@@ -68,8 +99,18 @@ def device_events(prof: torch.profiler.profile) -> list:
 
 def device_busy(prof: torch.profiler.profile, wall_ms: float
                 ) -> tuple[float, float]:
-    """(device busy ms, busy share of ``wall_ms`` in %) of a profile."""
-    busy = sum(e.self_device_time_total for e in device_events(prof)) / 1e3
+    """(device busy ms, busy share of ``wall_ms`` in %) of a profile: the
+    union of the intervals of its kernels, copies and sets over every
+    stream."""
+    busy, end = 0.0, float("-inf")
+    for s, e in sorted((e.time_range.start, e.time_range.end)
+                       for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and not getattr(e, "is_user_annotation", False)):
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    busy /= 1e3
     return busy, 100.0 * busy / max(wall_ms, 1e-9)
 
 
@@ -152,44 +193,3 @@ def synchronize(result) -> None:
     elif isinstance(result, (list, tuple)):
         for v in result:
             synchronize(v)
-
-
-class StepTimer:
-    """Wall-clock step timing that waits for the device.
-
-    Call ``tick(result)`` once per step with any tensor (or dict, list or
-    tuple of them) from the step; the timer waits for its device, records
-    the delta, and reports mean/p50/p99 and items/sec.
-    """
-
-    def __init__(self, items_per_step: int = 1, warmup: int = 2):
-        self.items_per_step = items_per_step
-        self.warmup = warmup
-        self.times: list[float] = []
-        self._count = 0
-        self._last: Optional[float] = None
-
-    def tick(self, result=None) -> float:
-        if result is not None:
-            synchronize(result)
-        now = time.perf_counter()
-        dt = 0.0
-        if self._last is not None:
-            dt = now - self._last
-            self._count += 1
-            if self._count > self.warmup:
-                self.times.append(dt)
-        self._last = now
-        return dt
-
-    def summary(self) -> dict:
-        if not self.times:
-            return {}
-        arr = np.asarray(self.times)
-        return {
-            "steps": len(arr),
-            "mean_ms": float(arr.mean() * 1e3),
-            "p50_ms": float(np.percentile(arr, 50) * 1e3),
-            "p99_ms": float(np.percentile(arr, 99) * 1e3),
-            "items_per_sec": float(self.items_per_step / arr.mean()),
-        }

@@ -1,8 +1,8 @@
 """The port's bench, profiling and interchange tools against dpc_tpu's, on
 the CPU.
 
-* ``utils.profiling``: ``StepTimer`` gives dpc_tpu's summary on the same
-  clock ticks; ``trace`` writes a Chrome trace; ``enable_debug`` makes a
+* ``utils.profiling``: ``device_busy`` is the union of the streams' busy
+  intervals; ``trace`` writes a Chrome trace; ``enable_debug`` makes a
   step with a NaN raise, and is off again after ``disable_debug``.
 * ``models.registry`` names the same backbones with the same
   ``feature_size``; the metrics helpers are exactly dpc_tpu's.
@@ -42,7 +42,6 @@ from dpc_tpu.models import registry as jax_registry
 from dpc_tpu.ops import nce as jax_nce
 from dpc_tpu.train import metrics as jax_metrics
 from dpc_tpu.utils import export_torch, torch_compat
-from dpc_tpu.utils import profiling as jax_profiling
 from dpc_tpu_torch import bench
 from dpc_tpu_torch.core import checkpoint as ckpt
 from dpc_tpu_torch.core.config import DPCConfig, TrainConfig
@@ -98,22 +97,29 @@ def _last_json(out: str) -> dict:
 # utils.profiling
 # ---------------------------------------------------------------------------
 
-def test_step_timer_matches_dpc_tpu(monkeypatch):
-    ticks = [0.0, 0.010, 0.031, 0.052, 0.060, 0.095, 0.101, 0.150]
+def _stub_event(start, end, device="cuda", annotation=False):
+    kind = (torch.autograd.DeviceType.CUDA if device == "cuda"
+            else torch.autograd.DeviceType.CPU)
+    return types.SimpleNamespace(
+        device_type=kind, is_user_annotation=annotation,
+        time_range=types.SimpleNamespace(start=start, end=end))
 
-    def summary(timer_cls, result):
-        clock = iter(ticks)
-        monkeypatch.setattr("time.perf_counter", lambda: next(clock))
-        timer = timer_cls(items_per_step=64, warmup=2)
-        for _ in ticks:
-            timer.tick(result)
-        return timer.summary()
 
-    want = summary(jax_profiling.StepTimer, None)
-    assert want["steps"] == len(ticks) - 3
-    assert summary(profiling.StepTimer, None) == want
-    # a tensor result is waited for (a no-op on the CPU) and gives the same
-    assert summary(profiling.StepTimer, {"loss": torch.ones(())}) == want
+def test_device_busy_is_the_union_over_streams():
+    """A copy stream overlapping the compute stream counts once: the busy
+    time is the union of the device intervals (µs), never their sum, and
+    host events and user-annotation ranges count for nothing."""
+    prof = types.SimpleNamespace(events=lambda: [
+        _stub_event(0, 4000), _stub_event(1000, 3000),   # copy under compute
+        _stub_event(3500, 6000), _stub_event(8000, 9000),
+        _stub_event(0, 10000, annotation=True), _stub_event(0, 10000, "cpu")])
+    busy_ms, pct = profiling.device_busy(prof, wall_ms=10.0)
+    assert busy_ms == pytest.approx(7.0)
+    assert pct == pytest.approx(70.0)
+    # the whole wall covered by two overlapping streams reads 100%, not 200%
+    prof = types.SimpleNamespace(events=lambda: [_stub_event(0, 10000),
+                                                 _stub_event(0, 10000)])
+    assert profiling.device_busy(prof, wall_ms=10.0)[1] == pytest.approx(100)
 
 
 def test_trace_writes_a_chrome_trace(tmp_path, capsys):
